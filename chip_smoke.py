@@ -22,8 +22,25 @@ Phases (each prints its own lines):
 5. kernels  — every kernel's public wrapper against its plain PyTorch
               version on the card, on inputs captured from phases 3-4:
               each launches once, agrees elementwise within the stated
-              tolerances, and both times are taken (CUDA events, median).
-6. result   — the kernels JSON line, then the final status line.
+              tolerances, and both times are taken (CUDA events, median),
+              with the bound (bytes over HBM rate or operations over the
+              float32 rate, whichever is larger) and, where one PyTorch
+              call computes the same function, that call's time.
+6. map      — the long-session surface at the same configuration:
+              (a) radius_search on the main replay's final map, 10 000
+                  queries at four settings (K2 with V = 8, V = 27, k = 64;
+                  K7 at r = 3 m), 256 of them held to a brute force over
+                  the stored points; K2 and K7 must launch;
+              (b) K7 and K2 at k = 64 against their plain versions on a
+                  captured chunk (sq/valid bit-equal), with times;
+              (c) an eviction replay (40 scans, evict_radius 30 m,
+                  evict_occupancy 0.002): an eviction must drop the map's
+                  point count, ATE < 0.15 m;
+              (d) checkpoint/resume: a replay saved half-way and resumed
+                  in a fresh Localizer(cfg) must retrace the rest within
+                  1e-5 m.
+7. result   — the card's name and power limit, the kernels JSON line, then
+              the final status line.
 
 Usage: python3 chip_smoke.py [--scans N] [--profile]
 Exits non-zero on any failed check; there is no CPU path.
@@ -72,6 +89,36 @@ def _time_ms(fn, reps: int = 5) -> float:
 
 
 WARMUP = 4          # scans before the steady per-scan times
+HBM_BPS = 3.35e12   # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
+FP32_OPS = 67e12    # H100 SXM float32 operations/s outside the tensor cores
+
+
+def _nbytes(*objs) -> int:
+    """Bytes of the tensors among ``objs`` (tuples such as a NavState are
+    walked; other values count nothing)."""
+    import torch
+
+    return sum(o.numel() * o.element_size() if torch.is_tensor(o)
+               else _nbytes(*o) if isinstance(o, (tuple, list)) else 0 for o in objs)
+
+
+def _k2_work(rows, nc, q, out, d2, E):
+    """K2's data-dependent work: every row's four meta planes, the
+    coordinates of the filled slots of wanted blocks, the outputs; 8
+    operations a distance."""
+    import torch
+
+    n_valid = int(torch.isfinite(d2).sum())
+    N, V, _ = rows.shape
+    return N * V * 4 * E * 4 + 12 * n_valid + _nbytes(nc, q, *out), 8 * n_valid
+
+
+def _bound(nbytes: float, ops: float):
+    """(least ms, "bytes" | "operations"): each input read once and each
+    output written once at the HBM rate, or the operations at the float32
+    rate, whichever takes longer."""
+    tb, to = 1e3 * nbytes / HBM_BPS, 1e3 * ops / FP32_OPS
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def _maxerr(a, b) -> float:
@@ -133,6 +180,215 @@ def _profile(torch, Localizer, cfg, stamps, acc, gyro, scans) -> None:
               f"x{e.count / n:6.1f}  {e.key[:90]}")
 
 
+def _events(stamps, scans):
+    """Arrival order of a replay: ("imu", i) and ("scan", j)."""
+    out, si = [], 0
+    for k in range(len(stamps)):
+        out.append(("imu", k))
+        while si < len(scans) and scans[si][0] <= stamps[k]:
+            out.append(("scan", si))
+            si += 1
+    return out
+
+
+def _feed(loc, ev, stamps, acc, gyro, scans):
+    kind, i = ev
+    if kind == "imu":
+        loc.update_imu(stamps[i], acc[i], gyro[i])
+    else:
+        loc.update_pointcloud(scans[i][1], scans[i][2], scans[i][0])
+
+
+def _brute_check(torch, name, stored, q, r, kmax, res):
+    """radius_search against a brute force over the stored points, on the
+    card: per query the same count (capped at kmax), the sorted sq within
+    rtol 1e-5, and every returned point inside the radius.  Returns the
+    mean count."""
+    nbrs, sq, valid = res
+    dx = stored[None, :, 0] - q[:, None, 0]
+    dy = stored[None, :, 1] - q[:, None, 1]
+    dz = stored[None, :, 2] - q[:, None, 2]
+    d2 = dx * dx + dy * dy + dz * dz                 # the kernels' association
+    d2 = torch.where(d2 <= r * r, d2, torch.full_like(d2, float("inf")))
+    want = torch.topk(d2, kmax, dim=1, largest=False).values
+    n_want = torch.isfinite(want).sum(1)
+    if not torch.equal(n_want, valid.sum(1)):
+        i = int((n_want != valid.sum(1)).nonzero()[0])
+        _fail(f"{name}: query {i} returns {int(valid[i].sum())} points, brute force "
+              f"{int(n_want[i])}")
+    _close(f"{name} sq", sq[valid], want[valid], 1e-5, 0.0)
+    dist = torch.linalg.norm(nbrs - q[:, None, :], dim=-1)
+    if not bool((dist[valid] <= r + 1e-5).all()):
+        _fail(f"{name}: a returned point lies outside the radius")
+    return float(n_want.float().mean())
+
+
+def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
+    """Phase 6: radius_search (K2, K7) on the main replay's final map, K7
+    and K2 at k = 64 against their plain versions, an eviction replay and a
+    checkpoint/resume."""
+    import torch
+
+    from fast_limo_tpu_torch.io import synthetic
+    from fast_limo_tpu_torch.models import mapper
+    from fast_limo_tpu_torch.models.localizer import Localizer
+    from fast_limo_tpu_torch.ops import dispatch, knn, knn_rows
+    from fast_limo_tpu_torch.utils import checkpoint, presets
+
+    def counts():
+        return {k: w[0].launches for k, w in wrappers.items()}
+
+    # (a) radius_search at four settings on the final map of phase 3
+    m, vox = loc.state.map, cfg.map_voxel_size
+    stored = checkpoint.map_points(m)
+    rng = np.random.default_rng(5)
+    pick = rng.choice(len(stored), 10000, replace=len(stored) < 10000)
+    q = torch.tensor(np.float32(stored[pick] + rng.uniform(-0.5, 0.5, (10000, 3))), device=dev)
+    stored_d = torch.tensor(stored, device=dev)
+    cap, k2_shapes = {}, []
+    o_k7, o_k2 = knn._launch, knn_rows._launch
+
+    def k7_cap(*a, **kw):
+        cap.setdefault("k7", (a, kw))
+        return o_k7(*a, **kw)
+
+    def k2_cap(*a, **kw):
+        k2_shapes.append((int(a[0].shape[1]), kw["k"]))
+        if kw["k"] == 64:
+            cap.setdefault("k2_64", (a, kw))
+        return o_k2(*a, **kw)
+
+    knn._launch, knn_rows._launch = k7_cap, k2_cap
+    settings = [(0.9 * vox, 16), (1.9 * vox, 16), (1.9 * vox, 64), (3.0, 16)]
+    for w in wrappers.values():
+        w[0].launches = 0
+    runs = []
+    for r, kmax in settings:
+        c0 = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mapper.radius_search(m, q, r, voxel_size=vox, max_results=kmax)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        runs.append((r, kmax, ms, {k: n - c0[k] for k, n in counts().items() if n > c0[k]}, res))
+    map_counts = counts()
+    knn._launch, knn_rows._launch = o_k7, o_k2
+    print(f"[smoke] map: {len(stored)} stored points, {q.shape[0]} queries | launches "
+          f"{json.dumps(map_counts)} | K2 (V, k) {sorted(set(k2_shapes))}", flush=True)
+    for r, kmax, ms, launched, res in runs:
+        name = f"radius {r:.2f} m / {kmax}"
+        n = _brute_check(torch, name, stored_d, q[:256], r, kmax,
+                         tuple(t[:256] for t in res))
+        print(f"[smoke] map: {name}: {ms:.2f} ms | launches {json.dumps(launched)} | 256 "
+              f"queries equal brute force ({n:.2f} points each)", flush=True)
+    for name in ("knn_rows", "masked_topk"):
+        if map_counts[name] <= 0:
+            _fail(f"kernel {name} did not launch in the map phase")
+    for want in ((8, 16), (27, 16), (27, 64)):
+        if want not in k2_shapes:
+            _fail(f"K2 did not launch with (V, k) = {want} in the map phase")
+    if "masked_topk" not in runs[3][3]:
+        _fail("radius_search's wide branch did not launch K7")
+
+    # (b) K7 and K2 at k = 64 against their plain versions
+    a7, kw7 = cap["k7"]
+    g = _once("K7", knn.masked_topk, lambda: knn.masked_topk(*a7, **kw7))
+    w = knn.masked_topk_reference(*a7, **kw7)
+    if not (torch.equal(g[1], w[1]) and torch.equal(g[2], w[2])):
+        _fail("K7 sq/valid differ from the plain version")
+    err = _maxerr(g[0][w[2]], w[0][w[2]])
+    if err != 0.0:
+        _fail(f"K7 neighbours differ where valid: {err:.3e}")
+    N7, C7 = a7[1].shape
+    n_valid = int(a7[1].sum())
+    d2_7 = knn.masked_d2(*a7)
+    report("masked_topk", err, lambda: knn.masked_topk(*a7, **kw7),
+           lambda: knn.masked_topk_reference(*a7, **kw7),
+           N7 * C7 + 12 * n_valid + _nbytes(a7[2], *g), 8 * n_valid,
+           lambda: torch.topk(d2_7, kw7["k"], dim=1, largest=False),
+           f"(N={N7}, C={C7}, k={kw7['k']}, {n_valid / (N7 * C7):.3f} valid; one of "
+           f"{map_counts['masked_topk']} chunks)", launches=map_counts["masked_topk"])
+
+    a2, kw2 = cap["k2_64"]
+    g = _once("K2 k=64", knn_rows.topk_from_rows, lambda: knn_rows.topk_from_rows(*a2, **kw2))
+    w = knn_rows.topk_from_rows_reference(*a2, **kw2)
+    if not (torch.equal(g[1], w[1]) and torch.equal(g[2], w[2])):
+        _fail("K2 (k = 64) sq/valid differ from the plain version")
+    err = _maxerr(g[0][w[2]], w[0][w[2]])
+    if err != 0.0:
+        _fail(f"K2 (k = 64) neighbours differ where valid: {err:.3e}")
+    d2_2 = knn_rows.candidate_d2(*a2, E=kw2["E"], B=kw2["B"])[0]
+    ms = _time_ms(lambda: knn_rows.topk_from_rows(*a2, **kw2))
+    pms = _time_ms(lambda: knn_rows.topk_from_rows_reference(*a2, **kw2), reps=3)
+    lms = _time_ms(lambda: torch.topk(d2_2, 64, dim=1, largest=False))
+    bms, by = _bound(*_k2_work(*a2, g, d2_2, kw2["E"]))
+    print(f"[smoke] kernel knn_rows (k=64): max_abs_err {err:.3e} | {ms:.4f} ms vs plain "
+          f"{pms:.4f} ms | bound {bms:.4f} ms ({by}) | one PyTorch call {lms:.4f} ms "
+          f"(N={a2[0].shape[0]}, V={a2[0].shape[1]}, k=64)", flush=True)
+
+    # (c) eviction replay at the bench's soak settings
+    seq_e = presets.bench_sequence(n_scans=40)
+    st_e, ac_e, gy_e = seq_e.imu_stream()
+    sc_e = [seq_e.scan(i) for i in range(seq_e.n_scans)]
+    loc_e = Localizer(cfg)
+    loc_e.evict_radius, loc_e.evict_occupancy = 30.0, 0.002
+    drops, o_evict = [], loc_e._maybe_evict
+
+    def watched(pos):
+        before = int(loc_e.state.map.num_points)
+        o_evict(pos)
+        after = int(loc_e.state.map.num_points)
+        if after != before:
+            drops.append((len(loc_e._raw_outputs) + 1, before, after))
+
+    loc_e._maybe_evict = watched
+    for ev in _events(st_e, sc_e):
+        _feed(loc_e, ev, st_e, ac_e, gy_e, sc_e)
+    est = loc_e.positions()
+    if len(est) != seq_e.n_scans or not np.isfinite(est).all():
+        _fail(f"eviction replay has {len(est)} poses or non-finite values")
+    ate_e = synthetic.ate_rmse(est, seq_e.traj.pos(loc_e.stamps()))
+    print(f"[smoke] evict: {len(est)} scans, ATE {ate_e:.4f} m | evictions (scan, points "
+          f"before, after) {drops}", flush=True)
+    if not drops or any(after >= before for _, before, after in drops):
+        _fail("no eviction dropped the map's point count in 40 scans")
+    if not ate_e < 0.15:
+        _fail(f"eviction replay ATE {ate_e:.4f} m >= 0.15 m")
+
+    # (d) checkpoint half-way through a replay (five IMU samples after scan
+    # save_at was dispatched), resume in a fresh Localizer
+    events = _events(stamps, scans)
+    save_at = len(scans) // 2
+    path = os.path.join(dispatch.BUILD_DIR, "smoke_resume.npz")
+    loc_b, fed, held = Localizer(cfg), [], None
+    for j, ev in enumerate(events):
+        _feed(loc_b, ev, stamps, acc, gyro, scans)
+        if ev[0] == "scan":
+            fed.append(ev)
+        if held is None and len(loc_b._raw_outputs) == save_at and len(loc_b._imu_queue) == 5:
+            loc_b.save_checkpoint(path)
+            pending = fed[len(fed) - len(loc_b._scan_queue):]
+            held = (list(loc_b._imu_queue), pending, j)
+    if held is None:
+        _fail(f"the replay never held five IMU samples after scan {save_at}")
+    loc_c = Localizer(cfg)
+    loc_c.load_checkpoint(path)
+    for s, a, g in held[0]:
+        loc_c.update_imu(s, a, g)
+    for ev in held[1] + events[held[2] + 1:]:
+        _feed(loc_c, ev, stamps, acc, gyro, scans)
+    got, want = loc_c.positions(), loc_b.positions()[save_at:]
+    if got.shape != want.shape:
+        _fail(f"resumed replay has {len(got)} poses, want {len(want)}")
+    err = float(np.abs(got - want).max())
+    print(f"[smoke] resume: saved after scan {save_at} ({len(held[0])} IMU samples and "
+          f"{len(held[1])} scans queued), resumed on {loc_c.state.P.device} for "
+          f"{len(got)} scans: max |dpos| {err:.3e} m vs the uninterrupted replay", flush=True)
+    if not err <= 1e-5:
+        _fail(f"resumed trajectory departs by {err:.3e} m > 1e-5 m")
+    os.remove(path)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=24)
@@ -156,7 +412,7 @@ def main() -> None:
     from fast_limo_tpu_torch.models import state as st
     from fast_limo_tpu_torch.models.localizer import Localizer
     from fast_limo_tpu_torch.io import synthetic
-    from fast_limo_tpu_torch.ops import (deskew_kernel, dispatch, hstats, knn_rows,
+    from fast_limo_tpu_torch.ops import (deskew_kernel, dispatch, hstats, knn, knn_rows,
                                          plane_kernel, update_body, update_loop)
     from fast_limo_tpu_torch.utils import presets
 
@@ -187,6 +443,8 @@ def main() -> None:
                         "fast_limo_tpu/ops/update_body.py:448"),
         "update_loop": (update_loop.update_loop, "fast_limo_tpu_torch/csrc/update_loop.cu",
                         "fast_limo_tpu/ops/update_loop.py:394"),
+        "masked_topk": (knn.masked_topk, "fast_limo_tpu_torch/csrc/masked_topk.cu",
+                        "fast_limo_tpu/ops/knn.py:52"),
     }
 
     def counts():
@@ -341,14 +599,19 @@ def main() -> None:
     # tensors: |kernel − plain| ≤ atol + rtol·|plain|.
     rows_out = []
 
-    def report(name, err, k_fn, p_fn, extra=""):
+    def report(name, err, k_fn, p_fn, nbytes, ops, lib_fn=None, extra="", launches=None):
         ms, pms = _time_ms(k_fn), _time_ms(p_fn, reps=3)
+        lms = _time_ms(lib_fn) if lib_fn is not None else None
+        bms, by = _bound(nbytes, ops)
         _, src, rep = wrappers[name]
         rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                         "launches": main_counts[name],
-                         "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                         "launches": main_counts[name] if launches is None else launches,
+                         "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                         "bound_by": by, "library_ms": lms})
+        lib = "none" if lms is None else f"{lms:.4f} ms"
         print(f"[smoke] kernel {name}: max_abs_err {err:.3e} | {ms:.4f} ms vs plain "
-              f"{pms:.4f} ms {extra}", flush=True)
+              f"{pms:.4f} ms | bound {bms:.4f} ms ({by}) | one PyTorch call {lib} {extra}",
+              flush=True)
 
     # K1 deskew — rtol 1e-4 / atol 2e-4 (f32 association, transcendental ulps)
     pts, t_pts, valid, frames, x_last, q_ext, t_ext = cap["deskew"]
@@ -364,7 +627,9 @@ def main() -> None:
 
     a, b = _once("K1", deskew_kernel.deskew, k1), k1_plain()
     err = max(_close("K1 xt2", a[0], b[0], 1e-4, 2e-4), _close("K1 world", a[1], b[1], 1e-4, 2e-4))
-    report("deskew", err, k1, k1_plain, f"(N={pts.shape[0]})")
+    # ~140 float32 operations a valid point (interpolation, two rotations)
+    report("deskew", err, k1, k1_plain, _nbytes(pts, t_pts, valid, *a), 140 * int(valid.sum()),
+           extra=f"(N={pts.shape[0]})")
 
     # K2 knn_rows — sq and valid bit-equal, nbrs equal where finite
     rows, nc, q, kw = cap["knn"]
@@ -376,9 +641,12 @@ def main() -> None:
     err = _maxerr(a[0][b[2]], b[0][b[2]])
     if err != 0.0:
         _fail(f"K2 neighbours differ where distances are finite: {err:.3e}")
+    d2_k2 = knn_rows.candidate_d2(rows, nc, q, E=kw["E"], B=kw["B"])[0]
+    nb2, ops2 = _k2_work(rows, nc, q, a, d2_k2, kw["E"])
     report("knn_rows", err, lambda: knn_rows.topk_from_rows(rows, nc, q, **kw),
-           lambda: knn_rows.topk_from_rows_reference(rows, nc, q, **kw),
-           f"(N={q.shape[0]}, k={kw['k']})")
+           lambda: knn_rows.topk_from_rows_reference(rows, nc, q, **kw), nb2, ops2,
+           lambda: torch.topk(d2_k2, kw["k"], dim=1, largest=False),
+           f"(N={q.shape[0]}, V={rows.shape[1]}, k={kw['k']})")
 
     # K3 fit_planes — gates agree on ≥ 99.5 %; rtol 5e-3 / atol 5e-4 where both good
     fa, fkw = cap3["fit"]
@@ -389,9 +657,10 @@ def main() -> None:
         _fail(f"K3 gate agreement {agree:.4f} < 0.995")
     both = a[1] & b[1]
     err = _close("K3 n_abcd", a[0][both], b[0][both], 5e-3, 5e-4)
+    # ~250 float32 operations a query (5-point moments, normal, gates)
     report("fit_planes", err, lambda: plane_kernel.fit_planes(*fa, **fkw),
-           lambda: plane_kernel.fit_planes_plain(*fa, **fkw),
-           f"(N={fa[0].shape[0]}, gate agreement {agree:.5f})")
+           lambda: plane_kernel.fit_planes_plain(*fa, **fkw), _nbytes(*fa, *a),
+           250 * fa[0].shape[0], extra=f"(N={fa[0].shape[0]}, gate agreement {agree:.5f})")
 
     # K4 hstats — rtol 1e-5 of each entry's sum of term magnitudes: both
     # sides sum the same 10^4 float32 products in different orders, and the
@@ -405,8 +674,12 @@ def main() -> None:
     Ha = torch.stack(cols, dim=-1).double().abs()
     err = max(_close("K4 HTH", a[0], b[0], 1e-5, 0.0, scale=Ha.T @ Ha),
               _close("K4 HTh", a[1], b[1], 1e-5, 0.0, scale=Ha.T @ hneg.double().abs()))
+    H4 = torch.stack(cols, dim=-1).contiguous()
+    # ~290 float32 operations a point: its H row (~110) and its share of
+    # the 78 + 12 sums of HᵀH and Hᵀh (2 each)
     report("hstats", err, lambda: hstats.hstats(X4, sc4, **hkw),
-           lambda: hstats.hstats_plain(X4, sc4, **hkw), f"(Np={Np4})")
+           lambda: hstats.hstats_plain(X4, sc4, **hkw), _nbytes(X4, sc4, *a), 290 * Np4,
+           lambda: torch.matmul(H4.T, H4), f"(Np={Np4})")
 
     # K5 update_body — x rtol 1e-3 / atol 1e-4, P and dx_ rtol 1e-3 / atol 1e-3
     # (Jacobi vs eigh guard, f32 gain conditioning)
@@ -415,8 +688,9 @@ def main() -> None:
     b = update_body.update_body_plain(*ba, **bkw)
     err = max(_close("K5 x", st.as_vector(a[0]), st.as_vector(b[0]), 1e-3, 1e-4),
               _close("K5 P", a[1], b[1], 1e-3, 1e-3), _close("K5 dx_", a[2], b[2], 1e-3, 1e-3))
+    # ~3e5 float32 operations: about ten 23×23 products, the 12×12 solve
     report("update_body", err, lambda: update_body.update_body(*ba, **bkw),
-           lambda: update_body.update_body_plain(*ba, **bkw))
+           lambda: update_body.update_body_plain(*ba, **bkw), _nbytes(*ba, *a), 3e5)
 
     # K6 update_loop — x, P rtol 1e-3 / atol 2e-4; n_iters, ok, stale count exact
     la, lkw = cap["loop"]
@@ -430,15 +704,22 @@ def main() -> None:
         _fail(f"K6 (n_iters, ok, stale) {a[2][[0, 1, 4]].tolist()} != plain {b[2][[0, 1, 4]].tolist()}")
     err = max(_close("K6 x", st.as_vector(a[0]), st.as_vector(b[0]), 1e-3, 2e-4),
               _close("K6 P", a[1], b[1], 1e-3, 2e-4))
+    Np6, W6, it6 = la[0].shape[0] // (5 + 3 * lkw['window'].W), lkw['window'].W, int(a[2][0])
+    # per iteration: ~(540 + 8·W) float32 operations a point (window
+    # re-rank, plane fit, H row and sums) and ~3e5 for the 23×23 update
     report("update_loop", err, k6, lambda: update_loop.update_loop_plain(*la, **lkw),
-           f"(Np={la[0].shape[0] // (5 + 3 * lkw['window'].W)}, n_iters {int(a[2][0])}, "
-           f"ok {bool(a[2][1] > 0)}, stale {int(a[2][4])})")
+           _nbytes(*la, *a),
+           it6 * ((540 + 8 * W6) * Np6 + 3e5),
+           extra=f"(Np={Np6}, n_iters {it6}, ok {bool(a[2][1] > 0)}, stale {int(a[2][4])})")
     torch.cuda.synchronize()
+
+    # ---- 6. map: the long-session surface ----
+    _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report)
 
     if args.profile:
         _profile(torch, Localizer, cfg, stamps, acc, gyro, scans)
 
-    # ---- 6. result ----
+    # ---- 7. result ----
     print(smi)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

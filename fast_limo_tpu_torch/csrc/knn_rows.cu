@@ -9,111 +9,78 @@
 // ordered exactly as the TPU kernel's: v-major, then slot-major s·E + e.
 //
 // On the H100 the kernel is bound by reading the gathered rows
-// (N·V·WP floats — 11 MB at N = 10000, V = 8, WP = 352) once.  One warp
-// per query: lanes stride the V·E·B = 768 candidates so neighbouring lanes
-// read neighbouring entries (coalesced), each lane keeps its own sorted
-// top-k list in registers (lexicographic on (distance, column)), and lane
-// 0 merges the 32 lists through shared memory.  Candidates that fail the
+// (N·V·WP floats — 11 MB at N = 10000, V = 8, WP = 352) once.  One block
+// of 128 threads per query: neighbouring threads decode neighbouring
+// candidates (coalesced) into a row of V·E·B masked distances in shared
+// memory, then the block selects the k smallest by radix
+// (topk_select.cuh, K7's select) and ranks them.  Candidates that fail the
 // masks enter with +inf, so the result equals a stable sort of the masked
-// distance row, invalid tail included.
-#include "common.cuh"
+// distance row, invalid tail included.  (Per-lane sorted lists, one warp
+// a query, were slower at every k the port uses: the lane-0 merge is
+// serial, and lists longer than 16 spill out of the registers.)
+#include "topk_select.cuh"
 
-#define FL_KMAX 16
+#define FL_KNN_THREADS 128
 
-__global__ void fl_knn_rows_kernel(const float* __restrict__ rows, const int* __restrict__ nc,
-                                   const float* __restrict__ qs, int N, int V, int WP, int E,
-                                   int B, int k, float* __restrict__ nbrs,
-                                   float* __restrict__ sq, uint8_t* __restrict__ valid) {
-  extern __shared__ unsigned char kshm[];
-  const int nl = blockDim.x < 32 ? blockDim.x : 32;   // lanes per query
-  const int qpb = blockDim.x / nl;
-  const int lane = threadIdx.x % nl, wq = threadIdx.x / nl;
-  const int q = blockIdx.x * qpb + wq;
-  float* Ld = (float*)kshm;
-  int* Lc = (int*)(kshm + (size_t)qpb * nl * FL_KMAX * sizeof(float));
-  const int EB = E * B;
-
-  float ld[FL_KMAX];
-  int lc[FL_KMAX];
-#pragma unroll
-  for (int s = 0; s < FL_KMAX; ++s) { ld[s] = INFINITY; lc[s] = 0x7FFFFFFF; }
-
-  if (q < N) {
-    const float qx = qs[3 * q], qy = qs[3 * q + 1], qz = qs[3 * q + 2];
-    const int ncand = V * EB;
-    for (int c = lane; c < ncand; c += nl) {
-      int v = c / EB, r = c - v * EB, s = r / E, e = r - s * E;
-      const float* base = rows + ((size_t)q * V + v) * WP;
-      const int* b = nc + ((size_t)q * V + v) * 3;
-      float cnt = base[3 * E + e];
-      bool ok = (cnt > 0.0f) && (floorf(base[e] * 0.5f) == (float)b[0]) &&
-                (floorf(base[E + e] * 0.5f) == (float)b[1]) &&
-                (floorf(base[2 * E + e] * 0.5f) == (float)b[2]) && (cnt > (float)s);
-      float d = INFINITY;
-      if (ok) {
-        float dx = base[4 * E + s * E + e] - qx;
-        float dy = base[4 * E + EB + s * E + e] - qy;
-        float dz = base[4 * E + 2 * EB + s * E + e] - qz;
-        d = dx * dx + dy * dy + dz * dz;
-      }
-      // sorted insert on (d, c); c grows within a lane
-      float nd = d;
-      int ncol = c;
-#pragma unroll
-      for (int s2 = 0; s2 < FL_KMAX; ++s2) {
-        bool lt = (nd < ld[s2]) || (nd == ld[s2] && ncol < lc[s2]);
-        if (lt) {
-          float td = ld[s2]; ld[s2] = nd; nd = td;
-          int tc = lc[s2]; lc[s2] = ncol; ncol = tc;
-        }
-      }
+__global__ void __launch_bounds__(FL_KNN_THREADS)
+fl_knn_rows_kernel(const float* __restrict__ rows, const int* __restrict__ nc,
+                   const float* __restrict__ qs, int V, int WP, int E, int B, int k,
+                   float* __restrict__ nbrs, float* __restrict__ sq,
+                   uint8_t* __restrict__ valid) {
+  extern __shared__ float d2s[];   // the query's V·E·B masked distances
+  __shared__ FlSelect sh;
+  const int q = blockIdx.x, tid = threadIdx.x, EB = E * B, C = V * EB;
+  const float qx = qs[3 * q], qy = qs[3 * q + 1], qz = qs[3 * q + 2];
+  for (int c = tid; c < C; c += blockDim.x) {
+    int v = c / EB, r = c - v * EB, s = r / E, e = r - s * E;
+    const float* base = rows + ((size_t)q * V + v) * WP;
+    const int* b = nc + ((size_t)q * V + v) * 3;
+    float cnt = base[3 * E + e];
+    bool ok = (cnt > 0.0f) && (floorf(base[e] * 0.5f) == (float)b[0]) &&
+              (floorf(base[E + e] * 0.5f) == (float)b[1]) &&
+              (floorf(base[2 * E + e] * 0.5f) == (float)b[2]) && (cnt > (float)s);
+    float d = INFINITY;
+    if (ok) {
+      float dx = base[4 * E + s * E + e] - qx;
+      float dy = base[4 * E + EB + s * E + e] - qy;
+      float dz = base[4 * E + 2 * EB + s * E + e] - qz;
+      d = dx * dx + dy * dy + dz * dz;
     }
+    d2s[c] = d;
   }
-  int slot = (wq * nl + lane) * FL_KMAX;
-#pragma unroll
-  for (int s = 0; s < FL_KMAX; ++s) { Ld[slot + s] = ld[s]; Lc[slot + s] = lc[s]; }
   __syncthreads();
-  if (q >= N || lane != 0) return;
 
-  int ptr[32];
-  for (int l = 0; l < nl; ++l) ptr[l] = 0;
-  for (int r = 0; r < k; ++r) {
-    int best = -1;
-    float bd = INFINITY;
-    int bc = 0x7FFFFFFF;
-    for (int l = 0; l < nl; ++l) {
-      if (ptr[l] >= FL_KMAX) continue;
-      int o = (wq * nl + l) * FL_KMAX + ptr[l];
-      float d = Ld[o];
-      int c = Lc[o];
-      if (best < 0 || d < bd || (d == bd && c < bc)) { best = l; bd = d; bc = c; }
-    }
-    ptr[best] += 1;
-    sq[(size_t)q * k + r] = bd;
-    valid[(size_t)q * k + r] = isfinite(bd) ? 1 : 0;
-    float nx = 0.0f, ny = 0.0f, nz = 0.0f;
-    if (bc != 0x7FFFFFFF) {
-      int v = bc / EB, rr = bc - v * EB, s = rr / E, e = rr - s * E;
-      const float* base = rows + ((size_t)q * V + v) * WP;
-      nx = base[4 * E + s * E + e];
-      ny = base[4 * E + EB + s * E + e];
-      nz = base[4 * E + 2 * EB + s * E + e];
-    }
-    nbrs[((size_t)q * k + r) * 3] = nx;
-    nbrs[((size_t)q * k + r) * 3 + 1] = ny;
-    nbrs[((size_t)q * k + r) * 3 + 2] = nz;
+  fl_select_k([&](int c) { return __float_as_uint(d2s[c]); }, C, k, sh);
+
+  if (tid < k) {
+    // the survivor's stored point, whatever its mask (as the plain gather)
+    const int c = sh.c[tid], v = c / EB, r = c - v * EB, s = r / E, e = r - s * E;
+    const float* base = rows + ((size_t)q * V + v) * WP;
+    const unsigned u = sh.u[tid];
+    const size_t o = (size_t)q * k + fl_select_rank(sh, k, tid);
+    sq[o] = __uint_as_float(u);
+    valid[o] = u < 0x7F800000u ? 1 : 0;
+    nbrs[3 * o] = base[4 * E + s * E + e];
+    nbrs[3 * o + 1] = base[4 * E + EB + s * E + e];
+    nbrs[3 * o + 2] = base[4 * E + 2 * EB + s * E + e];
   }
 }
 
 extern "C" int fl_knn_rows(const float* rows, const int* nc, const float* qs, int N, int V,
                            int WP, int E, int B, int k, float* nbrs, float* sq,
                            uint8_t* valid, cudaStream_t stream) {
-  if (k < 1 || k > FL_KMAX) return (int)cudaErrorInvalidValue;
-  int threads = 256, qpb = threads / 32;
-  int blocks = (N + qpb - 1) / qpb;
-  size_t smem = (size_t)threads * FL_KMAX * (sizeof(float) + sizeof(int));
-  if (blocks > 0)
-    fl_knn_rows_kernel<<<blocks, threads, smem, stream>>>(rows, nc, qs, N, V, WP, E, B, k,
-                                                          nbrs, sq, valid);
+  if (k < 1 || k > FL_SELECT_KMAX || k > V * E * B) return (int)cudaErrorInvalidValue;
+  // the distance row beside the select state; above 48 KB only by opt-in
+  size_t smem = (size_t)V * E * B * sizeof(float);
+  if (smem + sizeof(FlSelect) > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024 - sizeof(FlSelect)) {
+    cudaError_t err = cudaFuncSetAttribute(fl_knn_rows_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (N > 0)
+    fl_knn_rows_kernel<<<N, FL_KNN_THREADS, smem, stream>>>(rows, nc, qs, V, WP, E, B, k, nbrs,
+                                                            sq, valid);
   return (int)cudaGetLastError();
 }

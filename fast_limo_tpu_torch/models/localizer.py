@@ -1,16 +1,23 @@
-"""Host-side streaming orchestrator (port of the core of
-fast_limo_tpu/models/localizer.py; reference Modules/Localizer.hpp:138-201).
+"""Host-side streaming orchestrator (port of fast_limo_tpu/models/localizer.py;
+reference Modules/Localizer.hpp:138-201).
 
 Buffers IMU samples, runs the stand-still IMU calibration
 (Localizer.cpp:411-509), dispatches a scan once IMU coverage reaches its
 end time (the reference's condition-variable rule, Localizer.cpp:878-915),
 pads everything to static shapes and runs the per-scan step on the
-device the Localizer was built for.  Absolute time stays on the host in
-float64; the device sees float32 offsets from the current scan epoch.
+device the Localizer was built for (the card unless the caller asks for
+the CPU).  Absolute time stays on the host in float64; the device sees
+float32 offsets from the current scan epoch.
+
+For long sessions: per-scan outputs are copied to the host in batches and
+their device tensors released (``_bound_retention``); the map evicts far
+voxels on a 16-scan cadence once ``evict_radius`` is set
+(``_maybe_evict``); ``save_checkpoint``/``load_checkpoint`` persist and
+resume the whole state in the JAX package's format; the state queries
+(``get_world_state`` and friends) are fresh at IMU rate.
 
 Not ported yet (ROADMAP.md): split/pinned transfer, int16 quantized
-transfer, chunked replay, eviction, checkpoints, the native packer and
-the telemetry board.
+transfer, chunked replay, the native packer and the telemetry board.
 """
 
 from __future__ import annotations
@@ -22,9 +29,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from fast_limo_tpu_torch.models import mapper
 from fast_limo_tpu_torch.models import pipeline as pl
 from fast_limo_tpu_torch.models import preprocess
+from fast_limo_tpu_torch.ops import dispatch, so3
+from fast_limo_tpu_torch.utils import checkpoint as ckpt
+from fast_limo_tpu_torch.utils import validation
 from fast_limo_tpu_torch.utils.config import Config
+
+_OUT_FIELDS = ("scan_stamp", "pos", "quat", "vel", "n_iters", "n_pc2match")
 
 
 @dataclass
@@ -36,17 +49,19 @@ class _PendingScan:
 
 
 class Localizer:
-    def __init__(self, cfg: Config, device="cpu"):
+    def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = dispatch.resolve_device(device)
         self.scan_step = pl.build_scan_step(cfg, self.device)
         self._prop_step = None
+        self._prop_cache: Optional[tuple] = None        # (key, (x, P, abs_t))
         self.state: Optional[pl.LIOState] = None
         self.epoch: Optional[float] = None
 
         self._imu_queue: deque = deque()
         self._scan_queue: deque = deque()
         self._newest_imu_stamp: float = -np.inf
+        self._last_consumed_stamp: float = -np.inf     # host mirror of last_prop_time
         self._imu_period_est: float = 1.0 / 200.0
 
         self.imu_calibrated = not (cfg.gravity_align or cfg.calibrate_accel
@@ -60,8 +75,17 @@ class Localizer:
         self.init_ba = np.asarray(cfg.intrinsics.accel_bias, float)
         self._R_imu2bl = np.array(cfg.extrinsics.imu2baselink_R, float).reshape(3, 3).T
 
-        self._raw_outputs: List[tuple] = []     # (epoch, ScanOutput) on device
+        self._raw_outputs: List[tuple] = []   # (epoch, ScanOutput on device | None once copied)
         self._materialized: List[dict] = []
+        self._materialized_entries = 0
+        self._structure_checked = False
+
+        # rolling-origin eviction for a bounded map: when the map fills past
+        # evict_occupancy, voxels beyond evict_radius are freed (0 disables)
+        self.evict_radius: float = 0.0
+        self.evict_occupancy: float = 0.7
+        self._scans_since_evict = 0
+        self._evict_probe = None           # lagged copy of the map's point count
 
     # ------------------------------------------------------------------ IMU
     def update_imu(self, stamp: float, acc, gyro) -> None:
@@ -108,6 +132,9 @@ class Localizer:
         """Queue a scan; dispatched once IMU coverage reaches its end time."""
         if not self.imu_calibrated:
             return
+        if not self._structure_checked:  # once, like ROSutils.hpp:152 static
+            validation.check_pointcloud(points, t_raw, self.cfg.sensor_type, stamp)
+            self._structure_checked = True
         points = np.ascontiguousarray(points, np.float32)
         t64 = np.asarray(t_raw, np.float64)
         t_abs = preprocess.extract_point_times(
@@ -152,6 +179,8 @@ class Localizer:
             batch.append(self._imu_queue.popleft())
             if batch[-1][0] >= scan.last_pt_time:
                 break
+        if batch:
+            self._last_consumed_stamp = batch[-1][0]
         K = self.cfg.tpu.imu_batch
         if len(batch) > K:
             # fold the oldest samples into the carried state (predict only)
@@ -172,15 +201,10 @@ class Localizer:
         valid = torch.from_numpy(np.arange(rows.shape[0]) < n).to(d)
         return r[:, 0:3], r[:, 3:6], r[:, 6], valid
 
-    def _consume_imu_overflow(self, samples) -> None:
-        if not samples:
-            return
-        if self._prop_step is None:
-            self._prop_step = pl.build_prop_step(self.cfg, self.device)
+    def _imu_chunks(self, samples):
+        """(acc, gyro, stamp, valid) tensors per imu_batch-sized chunk of
+        samples, stamps relative to the current epoch."""
         K = self.cfg.tpu.imu_batch
-        s = self.state
-        x, P, t_rel, w_raw = s.x, s.P, s.last_prop_time, s.last_w_raw_bl
-        wc, ac = s.last_w, s.last_a
         for i0 in range(0, len(samples), K):
             chunk = samples[i0:i0 + K]
             rows = np.zeros((K, 7), np.float32)
@@ -188,12 +212,27 @@ class Localizer:
                 rows[i, 0:3] = a
                 rows[i, 3:6] = g
                 rows[i, 6] = ts - self.epoch
-            acc, gyro, stamp, valid = self._imu_tensors(rows, len(chunk))
-            x, P, t_rel, w_raw, wc, ac = self._prop_step(
+            yield self._imu_tensors(rows, len(chunk))
+
+    def _prop(self):
+        if self._prop_step is None:
+            self._prop_step = pl.build_prop_step(self.cfg, self.device)
+        return self._prop_step
+
+    def _consume_imu_overflow(self, samples) -> None:
+        if not samples:
+            return
+        s = self.state
+        x, P, t_rel, w_raw = s.x, s.P, s.last_prop_time, s.last_w_raw_bl
+        wc, ac = s.last_w, s.last_a
+        for acc, gyro, stamp, valid in self._imu_chunks(samples):
+            x, P, t_rel, w_raw, wc, ac = self._prop()(
                 x, P, t_rel, w_raw, s.bias_accel_corr, s.bias_gyro_corr,
                 acc, gyro, stamp, valid)
         self.state = s._replace(x=x, P=P, last_prop_time=t_rel,
                                 last_w_raw_bl=w_raw, last_w=wc, last_a=ac)
+        self._last_consumed_stamp = samples[-1][0]
+        self._prop_cache = None
 
     def _dispatch(self, scan: _PendingScan) -> None:
         if self.state is None:
@@ -213,7 +252,56 @@ class Localizer:
             epoch_shift=torch.tensor(np.float32(epoch_shift), device=d),
             imu_acc=acc, imu_gyro=gyro, imu_stamp=stamp, imu_valid=ivalid)
         self.state, out = self.scan_step(self.state, b)
+        self._maybe_evict(out.pos)
         self._raw_outputs.append((self.epoch, out))
+        self._bound_retention()
+
+    def _bound_retention(self) -> None:
+        """Bound the outputs held on the device: scans more than 64 back
+        are long computed, so copying them to the host does not stall."""
+        if len(self._raw_outputs) - self._materialized_entries > 64:
+            self._materialize_upto(len(self._raw_outputs) - 32)
+
+    def _count_probe(self):
+        """A copy of the map's point count that a later cadence mark reads
+        without waiting for the scans queued after it: on the card, an
+        asynchronous copy into pinned host memory and the event it ends at."""
+        n = self.state.map.num_points
+        if not n.is_cuda:
+            return n.clone(), None
+        host = torch.empty((), dtype=n.dtype, pin_memory=True)
+        host.copy_(n, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _maybe_evict(self, pos) -> None:
+        """Rolling-origin map eviction for long sequences.
+
+        Every 16 scans, the occupancy probe taken at the previous cadence
+        mark is read (long computed, so no stall on the scan just
+        dispatched; the decision lags one cadence, ~1.6 s, which
+        ``evict_occupancy`` leaves headroom for); past ``evict_occupancy``
+        of the capacity, voxels beyond ``evict_radius`` of ``pos`` are freed."""
+        if self.evict_radius <= 0:
+            return
+        self._scans_since_evict += 1
+        if self._scans_since_evict < 16:
+            return
+        self._scans_since_evict = 0
+        probe, self._evict_probe = self._evict_probe, self._count_probe()
+        if probe is None:
+            return
+        count, done = probe
+        if done is not None:
+            done.synchronize()
+        cap = self.cfg.tpu.map_capacity * self.cfg.map_points_per_voxel
+        if int(count) < self.evict_occupancy * cap:
+            return
+        self.state = self.state._replace(map=mapper.evict_far(
+            self.state.map, pos, self.evict_radius, voxel_size=self.cfg.map_voxel_size))
+        # the probe just taken predates the eviction: the next mark probes anew
+        self._evict_probe = None
 
     def _init_device_state(self, first_stamp: float) -> None:
         s = pl.init_state(self.cfg, self.device)
@@ -238,22 +326,27 @@ class Localizer:
         self.epoch = first_stamp
 
     # ---------------------------------------------------------------- query
+    def _materialize_upto(self, n: int) -> None:
+        """Copy outputs [materialized, n) to host dicts in one batched
+        transfer and release their device tensors."""
+        start = self._materialized_entries
+        if start >= n:
+            return
+        pend = self._raw_outputs[start:n]
+        host = [torch.stack([getattr(o, f).to(torch.float64).reshape(-1)
+                             for _, o in pend]).cpu().numpy() for f in _OUT_FIELDS]
+        for i, (epoch, _) in enumerate(pend):
+            self._materialized.append({
+                "stamp": epoch + float(host[0][i, 0]),
+                "pos": host[1][i], "quat": host[2][i], "vel": host[3][i],
+                "n_iters": int(host[4][i, 0]), "n_pc2match": int(host[5][i, 0])})
+            self._raw_outputs[start + i] = (epoch, None)
+        self._materialized_entries = n
+
     @property
     def trajectory(self) -> List[dict]:
-        """Per-scan outputs as host dicts (one batched device→host copy)."""
-        pend = self._raw_outputs[len(self._materialized):]
-        if pend:
-            outs = [o for _, o in pend]
-            host = [torch.stack([getattr(o, f).to(torch.float64).reshape(-1)
-                                 for o in outs]).cpu().numpy()
-                    for f in ("scan_stamp", "pos", "quat", "vel", "n_iters",
-                              "n_pc2match")]
-            for i, (epoch, _) in enumerate(pend):
-                self._materialized.append({
-                    "stamp": epoch + float(host[0][i, 0]),
-                    "pos": host[1][i], "quat": host[2][i], "vel": host[3][i],
-                    "n_iters": int(host[4][i, 0]),
-                    "n_pc2match": int(host[5][i, 0])})
+        """Per-scan outputs as host dicts (materialized on first access)."""
+        self._materialize_upto(len(self._raw_outputs))
         return self._materialized
 
     def positions(self) -> np.ndarray:
@@ -261,3 +354,132 @@ class Localizer:
 
     def stamps(self) -> np.ndarray:
         return np.array([t["stamp"] for t in self.trajectory])
+
+    def _propagated(self):
+        """(x, P, abs_time) propagated through every IMU sample received
+        since the last scan dispatch — the IMU-rate odometry state the
+        reference publishes per tick (Localizer.cpp:401-531).  A pure read:
+        the queued samples stay queued for the next scan step.  None when
+        nothing is fresher than the carried state; cached per new data."""
+        if self.state is None or self.epoch is None or not self._imu_queue:
+            return None
+        key = (len(self._raw_outputs), len(self._imu_queue), self._newest_imu_stamp)
+        if self._prop_cache is not None and self._prop_cache[0] == key:
+            return self._prop_cache[1]
+        pend = [p for p in self._imu_queue if p[0] > self._last_consumed_stamp]
+        if not pend:
+            return None
+        s = self.state
+        x, P, t_rel, w_raw = s.x, s.P, s.last_prop_time, s.last_w_raw_bl
+        for acc, gyro, stamp, valid in self._imu_chunks(pend):
+            x, P, t_rel, w_raw, _wc, _ac = self._prop()(
+                x, P, t_rel, w_raw, s.bias_accel_corr, s.bias_gyro_corr,
+                acc, gyro, stamp, valid)
+        result = (x, P, self.epoch + float(t_rel))
+        self._prop_cache = (key, result)
+        return result
+
+    def _query_xP(self):
+        """(x, P, abs_time) — IMU-rate fresh when post-scan samples exist."""
+        prop = self._propagated()
+        if prop is not None:
+            return prop
+        return (self.state.x, self.state.P,
+                (self.epoch or 0.0) + float(self.state.last_prop_time))
+
+    @staticmethod
+    def _np(t) -> np.ndarray:
+        return t.detach().cpu().numpy()
+
+    def get_world_state(self) -> dict:
+        """World-frame state (getWorldState, Localizer.cpp:175-189), velocity
+        in the body frame like the reference; fresh at IMU rate."""
+        if self.state is None:
+            return {}
+        x, _P, t = self._query_xP()
+        v_body = so3.quat_rotate(so3.quat_conj(x.rot), x.vel)
+        return {"pos": self._np(x.pos), "quat": self._np(x.rot),
+                "vel_body": self._np(v_body), "bg": self._np(x.bg),
+                "ba": self._np(x.ba), "grav": self._np(x.grav), "time": t}
+
+    def get_body_state(self) -> dict:
+        """Body (LiDAR) frame state (getBodyState, Localizer.cpp:158-173):
+        the pose composed with the estimated extrinsics."""
+        out = self.get_world_state()
+        if not out:
+            return out
+        x, _P, _t = self._query_xP()
+        out["pos"] = self._np(x.pos + x.t_LI)
+        out["quat"] = self._np(so3.quat_mul(x.rot, x.rot_LI))
+        return out
+
+    def get_pose_covariance(self) -> np.ndarray:
+        """6×6 pose covariance, position first like ROS odometry
+        (getPoseCovariance, Localizer.cpp:209-224)."""
+        if self.state is None:
+            return np.zeros((6, 6))
+        return self._np(self._query_xP()[1])[0:6, 0:6].astype(np.float64)
+
+    def get_twist_covariance(self) -> np.ndarray:
+        """6×6 twist covariance (getTwistCovariance, Localizer.cpp:226-239):
+        linear block from the filter, angular block the gyro noise."""
+        if self.state is None:
+            return np.zeros((6, 6))
+        P = self._np(self._query_xP()[1])
+        out = np.zeros((6, 6))
+        out[0:3, 0:3] = P[12:15, 12:15]
+        out[3:6, 3:6] = np.eye(3) * self.cfg.ikfom.cov_gyro
+        return out
+
+    # ---------------------------------------------------------- persistence
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the full SLAM state (filter + map + carries)."""
+        if self.state is None:
+            raise RuntimeError("nothing to checkpoint yet")
+        ckpt.save_state(path, self.state, extra={
+            "map_layout": mapper.layout_version(self.cfg.map_points_per_voxel),
+            "epoch": self.epoch,
+            "imu_calibrated": self.imu_calibrated,
+            "init_bg": self.init_bg.tolist(),
+            "init_ba": self.init_ba.tolist(),
+            "init_quat": self.init_quat.tolist(),
+        })
+
+    def load_checkpoint(self, path: str, reset_clock: bool = False) -> None:
+        """Resume from a checkpoint (of either package).  A map-layout stamp
+        that differs from this build's raises; the planar mirror is always
+        rebuilt from the entry-major table.  ``reset_clock=True`` for a new
+        session whose timestamps are unrelated to the saved ones."""
+        template = self.state if self.state is not None else pl.init_state(self.cfg, self.device)
+        extra = ckpt.load_extra(path)
+        want = mapper.layout_version(self.cfg.map_points_per_voxel)
+        got = extra.get("map_layout")
+        if got is not None and got != want:
+            raise ValueError(
+                f"checkpoint map layout {got!r} != current {want!r} — "
+                "this checkpoint was written by an incompatible table layout")
+        state = ckpt.load_state(path, template)
+        m = state.map
+        self.state = state._replace(map=m._replace(ptable=mapper._planarize(m.table, m.bucket)))
+        self.epoch = extra.get("epoch")
+        self.imu_calibrated = bool(extra.get("imu_calibrated", True))
+        self.init_bg = np.asarray(extra.get("init_bg", self.init_bg))
+        self.init_ba = np.asarray(extra.get("init_ba", self.init_ba))
+        self.init_quat = np.asarray(extra.get("init_quat", self.init_quat))
+        self._prop_cache = None
+        if reset_clock:
+            self.reset_clock()
+
+    def reset_clock(self) -> None:
+        """Restart the time base (new session): the epoch re-anchors on the
+        next scan; device time carries and sensor queues are cleared."""
+        self.epoch = None
+        self._imu_queue.clear()
+        self._scan_queue.clear()
+        self._newest_imu_stamp = -np.inf
+        self._last_consumed_stamp = -np.inf
+        self._prop_cache = None
+        self._first_imu_stamp = None
+        if self.state is not None:
+            zero = torch.zeros((), dtype=torch.float32, device=self.device)
+            self.state = self.state._replace(prev_scan_stamp=zero, last_prop_time=zero.clone())

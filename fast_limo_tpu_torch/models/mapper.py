@@ -8,17 +8,24 @@ per entry, and ``ptable`` (G, WP) its planar mirror
 kernel decodes.  The hash key is the 2×2×2-voxel BLOCK coordinate; a kNN
 gathers the 8 block rows spanning the query's 27-voxel cube.
 
-Everything here is plain tensor work (sorts, gathers, one scatter); after
-the same inserts ``table``/``ptable`` equal the JAX package's bit for bit.
+The map maintenance (insert, evict) is plain tensor work (sorts, gathers,
+one scatter); after the same inserts and evictions ``table``/``ptable``
+equal the JAX package's bit for bit.  The queries end in kernels: ``knn``
+and the narrow ``radius_search`` branches in K2 (``ops/knn_rows``), the
+wide ``radius_search`` branch in K7 (``ops/knn``).  Sharded maps
+(``num_shards``/``shard_index``/``owned`` in the JAX package) are not
+ported yet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from fast_limo_tpu_torch.ops import voxel
+from fast_limo_tpu_torch.ops import knn as knn_op
+from fast_limo_tpu_torch.ops import knn_rows, voxel
 
 E = 16       # entries per planar subgroup
 SUB = 1      # planar subgroups per hash-group row
@@ -46,6 +53,14 @@ def _corners(device):
                          for dz in (0, 1)], dtype=torch.int64, device=device)
 
 
+def _block_offsets(mb: int, device):
+    """((2mb+1)³, 3) block offsets in [-mb, mb]³, x-major (mb = 1 is the
+    JAX package's ``_BLOCK_OFFSETS27``)."""
+    r = range(-mb, mb + 1)
+    return torch.tensor([[dx, dy, dz] for dx in r for dy in r for dz in r],
+                        dtype=torch.int64, device=device)
+
+
 class VoxelHashMap(NamedTuple):
     table: torch.Tensor       # (G, W) float32 entry-major rows
     ptable: torch.Tensor      # (G, WP) float32 planar rows
@@ -59,6 +74,36 @@ class VoxelHashMap(NamedTuple):
     @property
     def bucket(self):
         return (self.table.shape[1] // ROW_E - 4) // 4
+
+    @property
+    def capacity(self):
+        """Total entry count (G·ROW_E)."""
+        return self.groups * ROW_E
+
+    @property
+    def _entries(self):
+        """(G·ROW_E, EW) flat entry-block view."""
+        return self.table.reshape(self.capacity, _entry_width(self.bucket))
+
+    @property
+    def coords(self):
+        """(G·ROW_E, 3) int32 voxel coords per entry (garbage where count == 0)."""
+        return self._entries[:, :3].to(torch.int32)
+
+    @property
+    def counts(self):
+        """(G·ROW_E,) int32 stored-point count per entry (0 = free)."""
+        return self._entries[:, 3].to(torch.int32)
+
+    @property
+    def points(self):
+        """(G·ROW_E, B, 3) stored points per entry."""
+        return self._entries[:, 4:].reshape(self.capacity, self.bucket, 4)[:, :, :3]
+
+    @property
+    def meta(self):
+        """(G·ROW_E, 4) int32 [vx, vy, vz, count]."""
+        return torch.cat([self.coords, self.counts[:, None]], dim=1)
 
 
 def layout_version(bucket: int) -> str:
@@ -217,12 +262,20 @@ def insert(m: VoxelHashMap, pts, valid, *, voxel_size: float) -> VoxelHashMap:
                         (m.num_points + total).to(torch.int32), m.last_time)
 
 
-def gather_rows(m: VoxelHashMap, queries, *, voxel_size: float):
-    """The kNN gather: ``(rows (N,8,WP) f32, ncb (N,8,3) int32 block coords)``
-    for the 8 blocks {b0, b0+1}³, b0 = floor((v−1)/2), which span the
-    query's 27-voxel cube."""
+def gather_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: int = 8):
+    """The kNN gather: ``(rows (N,V,WP) f32, ncb (N,V,3) int32 block coords)``.
+
+    ``neighborhood`` 4, 8 and 27 all take the 8 blocks {b0, b0+1}³,
+    b0 = floor((v−1)/2), which span the query's 27-voxel cube (coverage
+    radius voxel_size); -27 takes the 27 blocks around the query's own
+    block (coverage radius 2·voxel_size, for ``radius_search``)."""
+    if neighborhood not in (4, 8, 27, -27):
+        raise ValueError(f"neighborhood must be 4, 8, 27 or -27, got {neighborhood}")
     qc = voxel_coords(queries, voxel_size)
-    ncb = ((qc - 1) >> 1)[:, None, :] + _corners(queries.device)[None]
+    if neighborhood == -27:
+        ncb = block_coords(qc)[:, None, :] + _block_offsets(1, queries.device)[None]
+    else:
+        ncb = ((qc - 1) >> 1)[:, None, :] + _corners(queries.device)[None]
     rows = m.ptable[_hash(ncb, m.groups)]
     return rows, ncb.to(torch.int32)
 
@@ -247,3 +300,87 @@ def cands_from_rows(rows, ncb, bucket: int):
     slot = torch.arange(B, dtype=torch.float32, device=rows.device)[None, None, :, None]
     cand_valid = sel[:, :, None, :] & (slot < cnt[:, :, None, :])
     return cand_pts, cand_valid
+
+
+def gather_neighborhood(m: VoxelHashMap, queries, *, voxel_size: float,
+                        neighborhood: int = 8):
+    """Gather each query's block neighborhood and decode its buckets →
+    (cand_pts (N,V·SUB,B,E,3), cand_valid (N,V·SUB,B,E))."""
+    rows, ncb = gather_rows(m, queries, voxel_size=voxel_size, neighborhood=neighborhood)
+    return cands_from_rows(rows, ncb, m.bucket)
+
+
+def topk_from_candidates(cand_pts, cand_valid, queries, *, k: int):
+    """k smallest squared distances among the candidate buckets, ascending
+    (K7 on CUDA tensors)."""
+    N = queries.shape[0]
+    return knn_op.masked_topk(cand_pts.reshape(N, -1, 3), cand_valid.reshape(N, -1),
+                              queries, k=k)
+
+
+def knn(m: VoxelHashMap, queries, *, voxel_size: float, k: int, neighborhood: int = 8):
+    """Bounded kNN over the block neighborhood: gather, then K2."""
+    rows, ncb = gather_rows(m, queries, voxel_size=voxel_size, neighborhood=neighborhood)
+    return knn_rows.topk_from_rows(rows, ncb, queries, E=E, B=m.bucket, k=k)
+
+
+def evict_far(m: VoxelHashMap, center, radius: float, *, voxel_size: float) -> VoxelHashMap:
+    """Rolling-origin eviction: free every voxel whose centre lies farther
+    than ``radius`` from ``center`` (world frame) by zeroing its count in
+    ``table`` and in the count plane of ``ptable`` (a zero count is the free
+    state).  Returns a new map; ``m`` is left as it was."""
+    G, EW = m.groups, _entry_width(m.bucket)
+    ent = m.table.reshape(G * ROW_E, EW)
+    counts = ent[:, 3]
+    cvox = torch.as_tensor(center, dtype=torch.float32, device=ent.device) / voxel_size
+    d = ent[:, :3] + 0.5 - cvox
+    d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+    keep = (d2 * (voxel_size * voxel_size)) <= radius * radius
+    zero = torch.zeros_like(counts)
+    removed = torch.sum(torch.where((counts > 0) & ~keep, counts, zero)).to(torch.int32)
+    table = ent.clone()
+    table[:, 3] = torch.where(keep, counts, zero)
+    WP0 = _sub_width(m.bucket)
+    psub = m.ptable.reshape(G * SUB, WP0).clone()
+    pcnt = psub[:, 3 * E:4 * E]
+    psub[:, 3 * E:4 * E] = torch.where(keep.reshape(G * SUB, E), pcnt, torch.zeros_like(pcnt))
+    return m._replace(table=table.reshape(G, ROW_E * EW), ptable=psub.reshape(G, SUB * WP0),
+                      num_points=(m.num_points - removed).to(torch.int32))
+
+
+def radius_search(m: VoxelHashMap, queries, radius: float, *, voxel_size: float,
+                  max_results: int = 16):
+    """All stored points within ``radius`` of each query, ascending by
+    distance, capped at ``max_results`` → (pts (N,R,3), sq (N,R), valid
+    (N,R)); invalid lanes carry +inf.
+
+    ``radius ≤ voxel_size`` takes the 8-block gather and ``≤ 2·voxel_size``
+    the 27-block one, both through K2; larger radii gather the
+    (2mb+1)³ blocks around the query's block, mb = ceil(radius / (2·voxel_size))
+    ≤ 6, in query chunks that bound the gathered rows to 2^24 floats, one
+    K7 launch per chunk."""
+    r2 = radius * radius
+    if radius <= 2 * voxel_size + 1e-6:
+        nbh = 8 if radius <= voxel_size + 1e-6 else -27
+        nbrs, sq, valid = knn(m, queries, voxel_size=voxel_size, k=max_results,
+                              neighborhood=nbh)
+    else:
+        mb = int(math.ceil(radius / (2 * voxel_size) - 1e-9))
+        if mb > 6:
+            raise ValueError(f"radius {radius} needs a {2 * mb + 1}³-block gather (at most 13³)")
+        offs = _block_offsets(mb, queries.device)
+        N, V = queries.shape[0], offs.shape[0]
+        chunk = max(8, min(N, (1 << 24) // max(1, V * m.ptable.shape[1])))
+        outs = []
+        for i0 in range(0, N, chunk):
+            q = queries[i0:i0 + chunk]
+            ncb = block_coords(voxel_coords(q, voxel_size))[:, None, :] + offs[None]
+            rows = m.ptable[_hash(ncb, m.groups)]
+            cand_pts, cand_valid = cands_from_rows(rows, ncb, m.bucket)
+            outs.append(topk_from_candidates(cand_pts, cand_valid, q, k=max_results))
+        if not outs:
+            z = queries.new_zeros((0, max_results))
+            outs = [(queries.new_zeros((0, max_results, 3)), z, z.bool())]
+        nbrs, sq, valid = (torch.cat(x) for x in zip(*outs))
+    inside = valid & (sq <= r2)
+    return nbrs, torch.where(inside, sq, torch.full_like(sq, float("inf"))), inside

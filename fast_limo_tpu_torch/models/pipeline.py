@@ -1,7 +1,7 @@
 """The per-scan LIO step (port of fast_limo_tpu/models/pipeline.py:
 LIOState, ScanBatch, ScanOutput, init_state, build_scan_step, and
 build_prop_step, which the Localizer needs to fold an IMU backlog longer
-than the batch into the state).
+than the batch into the state and for its IMU-rate state queries).
 
     (LIOState, ScanBatch) → (LIOState', ScanOutput)
 
@@ -23,7 +23,7 @@ from fast_limo_tpu_torch.models import deskew as dsk
 from fast_limo_tpu_torch.models import iekf, mapper, measurement, preprocess
 from fast_limo_tpu_torch.models import process as proc
 from fast_limo_tpu_torch.models import state as st
-from fast_limo_tpu_torch.ops import so3, voxel
+from fast_limo_tpu_torch.ops import dispatch, so3, voxel
 from fast_limo_tpu_torch.utils.config import Config
 
 
@@ -80,7 +80,8 @@ def _mat(flat, device):
                         dtype=torch.float32, device=device)
 
 
-def init_state(cfg: Config, device="cpu") -> LIOState:
+def init_state(cfg: Config, device="cuda") -> LIOState:
+    device = dispatch.resolve_device(device)
     f32 = torch.float32
     x = st.identity(f32, gravity=cfg.gravity, device=device)
     R_l2b = _mat(cfg.extrinsics.lidar2baselink_R, device).T   # stored transposed
@@ -101,8 +102,9 @@ def init_state(cfg: Config, device="cpu") -> LIOState:
         pinned_grav=x.grav.clone())
 
 
-def build_scan_step(cfg: Config, device="cpu"):
+def build_scan_step(cfg: Config, device="cuda"):
     """The per-scan step for a static config, on ``device``."""
+    device = dispatch.resolve_device(device)
     mp_cfg = cfg.ikfom.mapping
     voxel_size = cfg.map_voxel_size
     k = mp_cfg.NUM_MATCH_POINTS
@@ -215,9 +217,11 @@ def build_scan_step(cfg: Config, device="cpu"):
     return scan_step
 
 
-def build_prop_step(cfg: Config, device="cpu"):
+def build_prop_step(cfg: Config, device="cuda"):
     """IMU-only propagation of the carried state (the JAX prop step): used
-    to fold an IMU backlog longer than ``imu_batch`` into the state."""
+    to fold an IMU backlog longer than ``imu_batch`` into the state and to
+    answer the Localizer's IMU-rate state queries."""
+    device = dispatch.resolve_device(device)
     f32 = torch.float32
     R_imu2bl = _mat(cfg.extrinsics.imu2baselink_R, device).T
     t_imu2bl = torch.tensor(cfg.extrinsics.imu2baselink_t, dtype=f32, device=device)

@@ -6,10 +6,15 @@ PyTorch version.  There is no switch that routes a CUDA tensor around its
 kernel, and a launch failure raises.
 
 The kernels (``fast_limo_tpu_torch/csrc/*.cu``) are compiled on first use
-with ``nvcc`` for ``sm_90a`` into ONE shared library with a plain C
+with ``nvcc`` for ``sm_90a`` — one ``nvcc -c`` per source, all started
+together, then one link — into ONE shared library with a plain C
 interface, loaded with ``ctypes``.  The library name carries a hash of the
 sources and flags, so a changed source rebuilds; the build directory is
 ``build/fast_limo_tpu_torch/`` at the repository root.
+
+The port's entry points run on the card unless the caller asks for the
+CPU (``device="cpu"``); ``resolve_device`` refuses a CUDA device where
+there is none instead of carrying on on the CPU.
 """
 
 from __future__ import annotations
@@ -27,14 +32,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "fast_limo_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-lineinfo", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name → argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "fl_deskew": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P],
     "fl_knn_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "fl_masked_topk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "fl_fit_planes": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P],
     "fl_hstats_rows": [_I],
     "fl_hstats": [_P, _I, _P, _I, _P, _P, _P, _P],
@@ -50,6 +55,16 @@ _lib = None
 def on_cuda(t: torch.Tensor) -> bool:
     """The kernel runs iff the tensor lies on a CUDA device."""
     return t.is_cuda
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``torch.device(device)``, refusing a CUDA device where there is none."""
+    d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "fast_limo_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device=\"cpu\" to run the plain versions on the CPU")
+    return d
 
 
 def _sources():
@@ -82,14 +97,34 @@ def build() -> str:
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), f"{os.getpid()}"
+    jobs = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(text)
+    objs = [obj for _, obj, _ in jobs]
+    tmp = f"{out}.{tag}.tmp"
+    if not failed:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-6000:]}")
+        f.write("\n".join(log))
+    for obj in objs:
+        if os.path.isfile(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(t[-3000:] for t in failed))
     os.replace(tmp, out)
     return out
 

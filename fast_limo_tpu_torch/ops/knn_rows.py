@@ -6,14 +6,17 @@ fast_limo_tpu/ops/knn_rows.py).
 distances + a stable sort) on CPU tensors.  Both return the k smallest
 squared distances ascending, ties to the lowest candidate column (columns
 v-major, then slot-major ``s·E + e`` — the TPU kernel's order), with
-``sq``/``valid`` bit-equal between the two.
+``sq``/``valid`` bit-equal between the two.  The kernel takes k ≤ KMAX
+(the radix select of ``csrc/topk_select.cuh``); beyond that it raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fast_limo_tpu_torch.ops import dispatch
+from fast_limo_tpu_torch.ops import dispatch, knn
+
+KMAX = 128      # FL_SELECT_KMAX of csrc/topk_select.cuh
 
 
 def candidate_d2(rows, nc, queries, *, E: int, B: int):
@@ -23,12 +26,7 @@ def candidate_d2(rows, nc, queries, *, E: int, B: int):
     cand_pts, cand_valid = mp.cands_from_rows(rows, nc, B)
     N = queries.shape[0]
     pts = cand_pts.reshape(N, -1, 3)
-    valid = cand_valid.reshape(N, -1)
-    dx = pts[..., 0] - queries[:, 0:1]
-    dy = pts[..., 1] - queries[:, 1:2]
-    dz = pts[..., 2] - queries[:, 2:3]
-    d2 = dx * dx + dy * dy + dz * dz      # the kernel's association order
-    return torch.where(valid, d2, torch.full_like(d2, float("inf"))), pts
+    return knn.masked_d2(pts, cand_valid.reshape(N, -1), queries), pts
 
 
 def topk_from_rows_reference(rows, nc, queries, *, E: int, B: int, k: int):
@@ -41,6 +39,8 @@ def topk_from_rows_reference(rows, nc, queries, *, E: int, B: int, k: int):
 
 def _launch(rows, nc, queries, *, E: int, B: int, k: int):
     N, V, WP = rows.shape
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"the knn_rows kernel takes 1 <= k <= {KMAX}, got {k}")
     if WP != 4 * E + 3 * E * B:
         raise ValueError(f"row width {WP} is not one planar group of E={E}, B={B}")
     dispatch.require(rows, "rows")

@@ -17,13 +17,16 @@ import torch
 from fast_limo_tpu_torch.models import mapper
 from fast_limo_tpu_torch.models import pipeline as pl
 from fast_limo_tpu_torch.models import state as st
+from fast_limo_tpu_torch.ops import dispatch
 
 CARRIES = ("prev_scan_stamp", "last_prop_time", "last_w_raw_bl", "last_w",
            "last_a", "bias_gyro_corr", "bias_accel_corr", "pinned_grav")
 MAP_FIELDS = ("table", "ptable", "num_points", "last_time")
 
 
-def lio_state_from_numpy(d: dict, device="cpu") -> pl.LIOState:
+def lio_state_from_numpy(d: dict, device="cuda") -> pl.LIOState:
+    device = dispatch.resolve_device(device)
+
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device).clone()
 

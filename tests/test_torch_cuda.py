@@ -12,7 +12,9 @@ bit-equal; K3 gate agreement ≥ 99.5 %, n_abcd rtol 5e-3/atol 5e-4; K4
 rtol 1e-5 of each entry's sum of term magnitudes (Σ|HᵢHⱼ|: the two sides
 sum the same float32 products in different orders); K5 x atol 1e-4 +
 rtol 1e-3, P atol 1e-3 + rtol 1e-3; K6 x and P atol 2e-4 + rtol 1e-3 with
-n_iters, ok and the stale count exact.
+n_iters, ok and the stale count exact; K7 and K2 at k = 64 sq and valid
+bit-equal, neighbours equal.  Also: the Localizer lands on the card by
+default, and a checkpoint round trip on the card.
 """
 
 import numpy as np
@@ -21,7 +23,7 @@ import torch
 
 from fast_limo_tpu_torch.models import iekf, mapper, measurement
 from fast_limo_tpu_torch.models import state as st
-from fast_limo_tpu_torch.ops import (deskew_kernel, hstats, knn_rows, plane_kernel,
+from fast_limo_tpu_torch.ops import (deskew_kernel, hstats, knn, knn_rows, plane_kernel,
                                      update_body, update_loop)
 from fast_limo_tpu_torch.utils import presets
 
@@ -188,3 +190,64 @@ def test_replay_is_deterministic(dev, scan):
     again = Localizer(cfg, device=dev)
     presets.replay(again, presets.bench_sequence(n_scans=6, points_per_scan=4096))
     np.testing.assert_array_equal(again.positions(), loc.positions())
+
+
+@pytest.mark.parametrize("N,C,k,frac,ties", [
+    (100, 81, 5, 0.7, False), (8, 81, 5, 0.0, False), (64, 1500, 64, 0.02, False),
+    (64, 1500, 64, 0.7, True), (381, 12000, 16, 0.7, False), (21, 25000, 128, 0.3, False)])
+def test_k7_masked_topk(dev, N, C, k, frac, ties):
+    rng = np.random.default_rng(N + C + k)
+    pts = np.float32(rng.normal(size=(N, C, 3)) * 3)
+    q = np.float32(rng.normal(size=(N, 3)))
+    if ties:                                   # many equal distances
+        pts, q = np.round(pts), np.round(q)
+    args = [torch.tensor(a, device=dev) for a in (pts, rng.random((N, C)) < frac, q)]
+    a = _once(knn.masked_topk, lambda: knn.masked_topk(*args, k=k))
+    b = knn.masked_topk_reference(*args, k=k)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_k2_at_k64_on_a_scan(scan):
+    _, h, _ = scan
+    for nbh in (8, -27):
+        rows, ncb = mapper.gather_rows(h.m, h.glob0, voxel_size=h.voxel_size, neighborhood=nbh)
+        for k in (17, 64, 128):
+            a = _once(knn_rows.topk_from_rows, lambda: knn_rows.topk_from_rows(
+                rows, ncb, h.glob0, E=mapper.E, B=h.m.bucket, k=k))
+            b = knn_rows.topk_from_rows_reference(rows, ncb, h.glob0, E=mapper.E,
+                                                  B=h.m.bucket, k=k)
+            assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+            assert torch.equal(a[0][b[2]], b[0][b[2]])
+    with pytest.raises(ValueError):
+        knn_rows.topk_from_rows(rows, ncb, h.glob0, E=mapper.E, B=h.m.bucket, k=129)
+
+
+def test_localizer_defaults_to_the_card(dev):
+    from fast_limo_tpu_torch.models.localizer import Localizer
+
+    cfg = presets.kitti_like_cfg()
+    cfg.tpu.max_points_per_scan = 2048
+    cfg.tpu.map_capacity = 8192
+    cfg.ikfom.mapping.MAX_NUM_PC2MATCH = 1000
+    cfg.tpu.max_insert_points = 1000
+    loc = Localizer(cfg)
+    presets.replay(loc, presets.bench_sequence(n_scans=2, points_per_scan=2048))
+    assert loc.state.P.device == torch.device("cuda", 0)
+    assert loc.state.map.table.device == torch.device("cuda", 0)
+    assert np.isfinite(loc.positions()).all()
+
+
+def test_checkpoint_round_trip_on_the_card(scan, tmp_path):
+    from fast_limo_tpu_torch.models.localizer import Localizer
+    from fast_limo_tpu_torch.utils import checkpoint
+
+    cfg, _, loc = scan
+    p = str(tmp_path / "ck.npz")
+    loc.save_checkpoint(p)
+    again = Localizer(cfg)
+    again.load_checkpoint(p)
+    flat = checkpoint._flatten_with_paths(loc.state)
+    for key, v in checkpoint._flatten_with_paths(again.state).items():
+        assert v.device == flat[key].device and torch.equal(v, flat[key]), key
+    assert again.epoch == loc.epoch

@@ -1,6 +1,7 @@
 """fast_limo_tpu_torch never imports JAX nor the JAX package: a fresh
-interpreter imports the port, runs one tiny CPU scan step through the
-Localizer, and JAX is still absent from sys.modules."""
+interpreter imports the port, runs two tiny CPU scan steps through the
+Localizer, queries the map (K7's plain version), writes and reads a
+checkpoint, and JAX is still absent from sys.modules."""
 
 import os
 import pathlib
@@ -11,11 +12,16 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 _SCRIPT = r"""
+import os
 import sys
+import tempfile
 import numpy as np
+import torch
 from fast_limo_tpu_torch.io import synthetic
+from fast_limo_tpu_torch.models import mapper
 from fast_limo_tpu_torch.models.localizer import Localizer
-from fast_limo_tpu_torch.utils import presets
+from fast_limo_tpu_torch.ops import knn
+from fast_limo_tpu_torch.utils import checkpoint, presets, validation
 
 cfg = presets.kitti_like_cfg()
 cfg.tpu.max_points_per_scan = 256
@@ -24,9 +30,17 @@ cfg.tpu.imu_batch = 16
 cfg.ikfom.mapping.MAX_NUM_PC2MATCH = 128
 cfg.tpu.max_insert_points = 128
 seq = presets.bench_sequence(n_scans=2, points_per_scan=256)
-loc = Localizer(cfg)
+loc = Localizer(cfg, device="cpu")
 presets.replay(loc, seq)
 assert loc.positions().shape == (2, 3) and np.isfinite(loc.positions()).all()
+q = torch.tensor(checkpoint.map_points(loc.state.map)[:16])
+_, sq, valid = mapper.radius_search(loc.state.map, q, 3.0, voxel_size=cfg.map_voxel_size)
+assert valid[:, 0].all() and knn.masked_topk.launches == 0
+path = os.path.join(tempfile.mkdtemp(), "ck.npz")
+loc.save_checkpoint(path)
+again = Localizer(cfg, device="cpu")
+again.load_checkpoint(path)
+assert torch.equal(again.state.map.table, loc.state.map.table)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "fast_limo_tpu" or m.startswith("fast_limo_tpu."))

@@ -86,7 +86,7 @@ def replays():
     overflows = {"jax": [], "torch": []}
     _count_overflows(jl, overflows["jax"])
     presets.replay(jl, seq)
-    tl = Localizer(_cfg(Config))
+    tl = Localizer(_cfg(Config), device="cpu")
     _count_overflows(tl, overflows["torch"])
     presets.replay(tl, seq)
     return seq, jl, tl, captured, overflows
@@ -108,7 +108,7 @@ def test_config_copies_are_identical():
 
 def test_interop_round_trip(replays):
     d = replays[3][-1][3]
-    s = interop.lio_state_from_numpy(d)
+    s = interop.lio_state_from_numpy(d, device="cpu")
     back = interop.lio_state_to_numpy(s)
     assert set(back) == set(d)
     for k in d:
@@ -128,7 +128,7 @@ def test_one_scan_step_matches_jax(replays, i):
         epoch_shift=torch.tensor(imu_pack[2, 7]), imu_acc=torch.tensor(imu_pack[:, 0:3]),
         imu_gyro=torch.tensor(imu_pack[:, 3:6]), imu_stamp=torch.tensor(imu_pack[:, 6]),
         imu_valid=torch.arange(K) < int(imu_pack[1, 7]))
-    s2, out = pl.build_scan_step(cfg)(interop.lio_state_from_numpy(s_np), b)
+    s2, out = pl.build_scan_step(cfg, "cpu")(interop.lio_state_from_numpy(s_np, "cpu"), b)
     got = interop.lio_state_to_numpy(s2)
     assert int(out.n_iters) == int(n_iters)
     np.testing.assert_allclose(got["x"], s2_np["x"], rtol=0, atol=2e-4)
@@ -178,7 +178,7 @@ def test_prop_step_matches_jax(replays, n):
     want = jpl.build_prop_step(_cfg(JConfig))(
         jst.from_vector(jnp.asarray(d["x"])), jnp.asarray(d["P"]),
         *(jnp.asarray(d[k]) for k in carries), jnp.asarray(rows))
-    got = pl.build_prop_step(cfg)(
+    got = pl.build_prop_step(cfg, "cpu")(
         st.from_vector(torch.tensor(d["x"])), torch.tensor(d["P"]),
         *(torch.tensor(d[k]) for k in carries), torch.tensor(rows[:, 0:3]),
         torch.tensor(rows[:, 3:6]), torch.tensor(rows[:, 6]), torch.arange(K) < n)

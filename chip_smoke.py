@@ -6,13 +6,15 @@ Phases (each prints its own lines):
 1. device   — require a CUDA device; print the card's name and power limit.
 2. build    — compile the Hopper kernels (csrc/*.cu, sm_90a) from the
               sources in this checkout into build/fast_limo_tpu_torch/.
-3. main     — a Localizer at the KITTI-HDL64-shaped configuration
-              (utils/presets.kitti_like_cfg: 32768-point scans, 2^17-entry
-              map, 10000 pc2match points, 3 iterations, window W = 12)
+3. main     — a Localizer at the bench's own configuration
+              (utils/presets.kitti_like_cfg = bench.py:59-105: 32768-point
+              scans, 2^17-entry map, 10000 pc2match points, 3 iterations,
+              window W = 12, int16 split transfer, one scan a dispatch)
               replays the synthetic bench corridor through update_imu /
               update_pointcloud.  Prints the ATE against ground truth (must
               be < 0.15 m), per-scan wall ms p50/p95 after warm-up, the
-              launch count of every kernel (K1, K2, K6 must be > 0), the
+              launch count of every kernel (K1, K2, K6 must be > 0; K9
+              exactly twice a scan: the voxel and the insert sort), the
               loop-fallback count and the host-sync count.
 4. fallback — the exact per-iteration update loop (the path taken when the
               whole-loop kernel's certificates fail) on one captured scan at
@@ -20,7 +22,10 @@ Phases (each prints its own lines):
               branches: K2 (k=5), K3, K4, K5 must launch; its x/P are
               compared with the whole-loop kernel's on that scan.
 5. kernels  — every kernel's public wrapper against its plain PyTorch
-              version on the card, on inputs captured from phases 3-4:
+              version on the card, on inputs captured from phases 3-4
+              (K9 on the captured voxel sort, N = 32768, and insert sort,
+              N = 10000: all three outputs bit-equal, with its CUDA
+              launches a call counted by torch.profiler):
               each launches once, agrees elementwise within the stated
               tolerances, and both times are taken (CUDA events, median),
               with the bound (bytes over HBM rate or operations over the
@@ -39,7 +44,17 @@ Phases (each prints its own lines):
               (d) checkpoint/resume: a replay saved half-way and resumed
                   in a fresh Localizer(cfg) must retrace the rest within
                   1e-5 m.
-7. result   — the card's name and power limit, the kernels JSON line, then
+7. transfer — the same scans through the bench's other streaming entry
+              points: (a) chunked replay (scan_chunk = 4, flush()), poses
+              within the JAX package's chunk bounds of phase 3's (pos 3e-4,
+              quat 3e-5, n_pc2match equal); (b) the float32 split transfer
+              (quantize_transfer = 0), ATE < 0.15 m; (c) AsyncIngest over a
+              fresh Localizer fed by two producer threads, poses equal to
+              phase 3's bit for bit; (d) the native int16 packer is the C
+              library and bit-equal to its NumPy twin on every scan, and
+              both are timed on the host (ms a scan at N = 32768); (e)
+              per-scan wall p50/p95 of (a) beside phase 3's.
+8. result   — the card's name and power limit, the kernels JSON line, then
               the final status line.
 
 Usage: python3 chip_smoke.py [--scans N] [--profile]
@@ -149,9 +164,10 @@ def _once(name, wrapper, call):
     return out
 
 
-def _profile(torch, Localizer, cfg, stamps, acc, gyro, scans) -> None:
+def _profile(torch, Localizer, cfg, stamps, acc, gyro, scans, label: str) -> None:
     """torch.profiler over the steady scans of a fresh replay: device time
-    by kernel/op and the device's busy share of the profiled wall time."""
+    by kernel/op, the device's busy share of the profiled wall time, and
+    the host ops with the most self time."""
     from torch.profiler import ProfilerActivity, profile
 
     loc = Localizer(cfg, device=torch.device("cuda:0"))
@@ -166,18 +182,24 @@ def _profile(torch, Localizer, cfg, stamps, acc, gyro, scans) -> None:
                 t0 = time.perf_counter()
             loc.update_pointcloud(scans[si][1], scans[si][2], scans[si][0])
             si += 1
+    loc.flush()
     torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
     prof.__exit__(None, None, None)
     n = len(scans) - WARMUP
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    stats = prof.key_averages()
+    events = [e for e in stats if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events)
-    print(f"[smoke] profile: {n} scans, device busy {busy / n / 1e3:.3f} ms/scan of "
+    print(f"[smoke] profile {label}: {n} scans, device busy {busy / n / 1e3:.3f} ms/scan of "
           f"{wall_us / n / 1e3:.3f} ms/scan wall (profiled; busy share "
           f"{busy / wall_us:.3f}), {sum(e.count for e in events) / n:.0f} device ops/scan")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
-        print(f"[smoke] profile: {e.self_device_time_total / n / 1e3:8.4f} ms/scan "
+        print(f"[smoke] profile {label}: {e.self_device_time_total / n / 1e3:8.4f} ms/scan "
               f"x{e.count / n:6.1f}  {e.key[:90]}")
+    host = [e for e in stats if e.device_type.name == "CPU"]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"[smoke] profile {label} host: {e.self_cpu_time_total / n / 1e3:8.4f} ms/scan "
+              f"x{e.count / n:7.1f}  {e.key[:80]}")
 
 
 def _events(stamps, scans):
@@ -389,11 +411,156 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
     os.remove(path)
 
 
+def _cuda_launches(torch, fn, prefix: str):
+    """CUDA kernels named ``prefix*`` that one call of fn() launches, as
+    torch.profiler records them ("not measured" if it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    n = sum(e.count for e in events if e.key.startswith(prefix))
+    return n if events else "not measured"
+
+
+def _replay_timed(torch, loc, method, stamps, acc, gyro, scans):
+    """Replay in arrival order (then flush), timing each call of
+    ``loc.<method>`` on the host between two synchronises; returns
+    [(ms, scans in the call)]."""
+    times, orig = [], getattr(loc, method)
+
+    def timed(arg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig(arg)
+        torch.cuda.synchronize()
+        times.append((1e3 * (time.perf_counter() - t), len(arg) if isinstance(arg, list) else 1))
+
+    setattr(loc, method, timed)
+    for ev in _events(stamps, scans):
+        _feed(loc, ev, stamps, acc, gyro, scans)
+    loc.flush()
+    delattr(loc, method)
+    return times
+
+
+def _transfer_phase(dev, cfg, seq, loc1, stamps, acc, gyro, scans, scan_ms):
+    """Phase 7: chunked replay, the float32 split transfer, AsyncIngest and
+    the native packer, on the scans of phase 3 (whose Localizer is loc1)."""
+    import copy
+    import threading
+
+    import torch
+
+    from fast_limo_tpu_torch.io import native, synthetic
+    from fast_limo_tpu_torch.io.stream import AsyncIngest
+    from fast_limo_tpu_torch.models import iekf
+    from fast_limo_tpu_torch.models.localizer import Localizer
+
+    t1 = loc1.trajectory
+
+    # (a) chunked replay, C = 4, the partial tail sent by flush()
+    cfg4 = copy.deepcopy(cfg)
+    cfg4.tpu.scan_chunk = 4
+    loc4 = Localizer(cfg4, device=dev)
+    chunk_ms = _replay_timed(torch, loc4, "_dispatch_chunk", stamps, acc, gyro, scans)
+    t4 = loc4.trajectory
+    if len(t4) != len(t1):
+        _fail(f"chunked replay has {len(t4)} poses, the one-scan path {len(t1)}")
+    dpos = max(float(np.abs(a["pos"] - b["pos"]).max()) for a, b in zip(t1, t4))
+    dquat = max(float(np.abs(a["quat"] - b["quat"]).max()) for a, b in zip(t1, t4))
+    same_n = all(a["n_pc2match"] == b["n_pc2match"] for a, b in zip(t1, t4))
+    print(f"[smoke] transfer: (a) scan_chunk 4: {len(t4)} scans in {len(chunk_ms)} dispatches | "
+          f"vs phase 3 max |dpos| {dpos:.3e} m, max |dquat| {dquat:.3e}, n_pc2match "
+          f"{'equal' if same_n else 'DIFFER'}", flush=True)
+    if not (dpos <= 3e-4 and dquat <= 3e-5 and same_n):
+        _fail("chunked replay departs from the one-scan path beyond pos 3e-4 / quat 3e-5")
+
+    # (b) the float32 split transfer
+    cfgf = copy.deepcopy(cfg)
+    cfgf.tpu.quantize_transfer = 0.0
+    iekf.counters.host_syncs = iekf.counters.loop_fallbacks = 0
+    locf = Localizer(cfgf, device=dev)
+    for ev in _events(stamps, scans):
+        _feed(locf, ev, stamps, acc, gyro, scans)
+    estf = locf.positions()
+    ate_f = synthetic.ate_rmse(estf, seq.traj.pos(locf.stamps()))
+    print(f"[smoke] transfer: (b) float32 split transfer: {len(estf)} scans, ATE {ate_f:.4f} m | "
+          f"loop fallbacks {iekf.counters.loop_fallbacks} | host syncs "
+          f"{iekf.counters.host_syncs}", flush=True)
+    if len(estf) != len(scans) or not ate_f < 0.15:
+        _fail(f"float32 split transfer: {len(estf)} poses, ATE {ate_f:.4f} m (< 0.15 m wanted)")
+
+    # (c) AsyncIngest fed by two producer threads
+    loca = Localizer(cfg, device=dev)
+    with AsyncIngest(loca) as ingest:
+        def imu_producer():
+            for k in range(len(stamps)):
+                ingest.push_imu(stamps[k], acc[k], gyro[k])
+                if k % 50 == 0:
+                    time.sleep(0.001)
+
+        def scan_producer():
+            for st_, pts, traw in scans:
+                ingest.push_scan(pts, traw, st_)
+                time.sleep(0.002)
+
+        threads = [threading.Thread(target=imu_producer), threading.Thread(target=scan_producer)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            _fail("an AsyncIngest producer thread did not finish")
+    pa, p1 = loca.positions(), loc1.positions()
+    print(f"[smoke] transfer: (c) AsyncIngest, two producers: {len(pa)} scans, IMU dropped "
+          f"{ingest.imu_dropped} | {'equal to' if np.array_equal(pa, p1) else 'DIFFERENT from'} "
+          f"phase 3 bit for bit", flush=True)
+    if ingest.imu_dropped or not np.array_equal(pa, p1):
+        _fail("AsyncIngest replay differs from the synchronous one")
+
+    # (d) the native packer: the C library, bit-equal to its NumPy twin;
+    # both timed on the host (median of 20 calls a scan, every scan)
+    if native.get_lib() is None:
+        _fail("the native int16 packer did not build (g++)")
+    N, q = cfg.tpu.max_points_per_scan, cfg.tpu.quantize_transfer
+    c_ms, np_ms = [], []
+    for i, (_, pts, traw) in enumerate(scans):
+        p32 = np.ascontiguousarray(pts[:N], np.float32)
+        t32 = np.ascontiguousarray(traw[:N], np.float32)
+        a, ta, na = native.pack_scan_i16(p32, t32, N, q)
+        b, tb, nb = native.pack_scan_i16_numpy(p32, t32, N, q)
+        if not (np.array_equal(a, b) and ta == tb and na == nb):
+            _fail(f"native int16 pack of scan {i} differs from its NumPy twin")
+        for fn, out in ((native.pack_scan_i16, c_ms), (native.pack_scan_i16_numpy, np_ms)):
+            reps = []
+            for _ in range(20):
+                t = time.perf_counter()
+                fn(p32, t32, N, q)
+                reps.append(1e3 * (time.perf_counter() - t))
+            out.append(float(np.median(reps)))
+    print(f"[smoke] transfer: (d) native int16 packer ({os.path.basename(native.library_path())}) "
+          f"bit-equal to its NumPy twin on {len(scans)} scans | host ms a scan at N = {N}: "
+          f"C p50 {np.percentile(c_ms, 50):.4f} p95 {np.percentile(c_ms, 95):.4f}, NumPy twin "
+          f"p50 {np.percentile(np_ms, 50):.4f} p95 {np.percentile(np_ms, 95):.4f}", flush=True)
+
+    # (e) per-scan wall, after the first chunk / the warm-up scans
+    per4 = np.asarray([ms / n for ms, n in chunk_ms[1:]])
+    steady = scan_ms[WARMUP:]
+    print(f"[smoke] transfer: (e) per-scan wall ms: scan_chunk 4 p50 {np.percentile(per4, 50):.2f} "
+          f"p95 {np.percentile(per4, 95):.2f} ({len(per4)} chunks after the first) | one scan a "
+          f"dispatch (phase 3) p50 {np.percentile(steady, 50):.2f} p95 "
+          f"{np.percentile(steady, 95):.2f}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=24)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a replay's steady scans (torch.profiler)")
+                    help="also profile the steady scans of a one-scan and a "
+                         "chunked (C = 4) replay (torch.profiler)")
     args = ap.parse_args()
 
     # ---- 1. device ----
@@ -413,7 +580,7 @@ def main() -> None:
     from fast_limo_tpu_torch.models.localizer import Localizer
     from fast_limo_tpu_torch.io import synthetic
     from fast_limo_tpu_torch.ops import (deskew_kernel, dispatch, hstats, knn, knn_rows,
-                                         plane_kernel, update_body, update_loop)
+                                         plane_kernel, sort, update_body, update_loop)
     from fast_limo_tpu_torch.utils import presets
 
     # ---- 2. build ----
@@ -445,6 +612,8 @@ def main() -> None:
                         "fast_limo_tpu/ops/update_loop.py:394"),
         "masked_topk": (knn.masked_topk, "fast_limo_tpu_torch/csrc/masked_topk.cu",
                         "fast_limo_tpu/ops/knn.py:52"),
+        "sort3": (sort.sort3, "fast_limo_tpu_torch/csrc/sort3.cu",
+                  "fast_limo_tpu/ops/sort.py:98"),
     }
 
     def counts():
@@ -468,6 +637,7 @@ def main() -> None:
     orig_deskew = dsk_model.deskew
     orig_knn = knn_rows._launch
     orig_loop = update_loop._launch
+    orig_sort = sort._launch
 
     def dispatch_timed(scan):
         capturing = len(scan_ms) == capture_at
@@ -495,6 +665,11 @@ def main() -> None:
             cap["knn"] = (rows, nc, q, kw)
         return orig_knn(rows, nc, q, **kw)
 
+    def sort_capture(*a):
+        if cap.get("on"):
+            cap.setdefault("sort", []).append(tuple(t.clone() for t in a))
+        return orig_sort(*a)
+
     def loop_capture(*a, **kw):
         if cap.get("on"):
             cap["loop"] = (a, kw)
@@ -508,6 +683,7 @@ def main() -> None:
     dsk_model.deskew = desk_capture
     knn_rows._launch = knn_capture
     update_loop._launch = loop_capture
+    sort._launch = sort_capture
 
     for w in wrappers.values():
         w[0].launches = 0
@@ -528,6 +704,7 @@ def main() -> None:
     dsk_model.deskew = orig_deskew
     knn_rows._launch = orig_knn
     update_loop._launch = orig_loop
+    sort._launch = orig_sort
 
     est = loc.positions()
     if len(est) != args.scans or not np.isfinite(est).all():
@@ -545,7 +722,9 @@ def main() -> None:
     for name in ("deskew", "knn_rows", "update_loop"):
         if main_counts[name] <= 0:
             _fail(f"kernel {name} did not launch on the main path")
-    for key in ("h_model", "deskew", "knn", "loop", "loop_out"):
+    if main_counts["sort3"] != 2 * args.scans:
+        _fail(f"K9 launched {main_counts['sort3']} times in {args.scans} scans, not twice a scan")
+    for key in ("h_model", "deskew", "knn", "loop", "loop_out", "sort"):
         if key not in cap:
             _fail(f"capture of scan {capture_at} missed {key}")
 
@@ -599,13 +778,15 @@ def main() -> None:
     # tensors: |kernel − plain| ≤ atol + rtol·|plain|.
     rows_out = []
 
-    def report(name, err, k_fn, p_fn, nbytes, ops, lib_fn=None, extra="", launches=None):
+    def report(name, err, k_fn, p_fn, nbytes, ops, lib_fn=None, extra="", launches=None,
+               kernel=None):
         ms, pms = _time_ms(k_fn), _time_ms(p_fn, reps=3)
         lms = _time_ms(lib_fn) if lib_fn is not None else None
         bms, by = _bound(nbytes, ops)
-        _, src, rep = wrappers[name]
+        kernel = kernel or name
+        _, src, rep = wrappers[kernel]
         rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                         "launches": main_counts[name] if launches is None else launches,
+                         "launches": main_counts[kernel] if launches is None else launches,
                          "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
                          "bound_by": by, "library_ms": lms})
         lib = "none" if lms is None else f"{lms:.4f} ms"
@@ -711,15 +892,43 @@ def main() -> None:
            _nbytes(*la, *a),
            it6 * ((540 + 8 * W6) * Np6 + 3e5),
            extra=f"(Np={Np6}, n_iters {it6}, ok {bool(a[2][1] > 0)}, stale {int(a[2][4])})")
+
+    # K9 sort3 — all three outputs bit-equal to the plain version, on the
+    # voxel sort (N = 32768) and the insert sort (N = 10000) of the
+    # captured scan; one PyTorch call: the stable int64 packed-key sort the
+    # port ran before K9
+    sorts = {int(c[0].shape[0]): c for c in cap["sort"]}
+    n_vox, n_ins = cfg.tpu.max_points_per_scan, cfg.tpu.max_insert_points
+    if len(cap["sort"]) != 2 or set(sorts) != {n_vox, n_ins}:
+        _fail(f"captured K9 calls at N = {[int(c[0].shape[0]) for c in cap['sort']]}, "
+              f"not one voxel sort (N = {n_vox}) and one insert sort (N = {n_ins})")
+    for n_sort, name, what in ((n_vox, "sort3", "voxel"), (n_ins, "sort3 (insert)", "insert")):
+        k1, k2, v = sorts[n_sort]
+        a = _once(f"K9 {what}", sort.sort3, lambda: sort.sort3(k1, k2, v))
+        b = sort.sort3_plain(k1, k2, v)
+        for i, (g, w) in enumerate(zip(a, b)):
+            if not torch.equal(g, w):
+                _fail(f"K9 ({what}) output {i} differs from the plain version")
+        packed = (k1.long() << 30) | k2.long() if what == "insert" else k1.long()
+        n_cuda = _cuda_launches(torch, lambda: sort.sort3(k1, k2, v), "fl_sort3")
+        report(name, 0.0, lambda: sort.sort3(k1, k2, v), lambda: sort.sort3_plain(k1, k2, v),
+               24 * k1.shape[0], 0, lambda: torch.sort(packed, stable=True),
+               f"(N={k1.shape[0]}, {what} sort, {n_cuda} CUDA launches a call)", kernel="sort3")
     torch.cuda.synchronize()
 
     # ---- 6. map: the long-session surface ----
     _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report)
 
-    if args.profile:
-        _profile(torch, Localizer, cfg, stamps, acc, gyro, scans)
+    # ---- 7. transfer and replay: the bench's other streaming entry points ----
+    _transfer_phase(dev, cfg, seq, loc, stamps, acc, gyro, scans, np.asarray(scan_ms))
 
-    # ---- 7. result ----
+    if args.profile:
+        cfg4 = presets.kitti_like_cfg()
+        cfg4.tpu.scan_chunk = 4
+        for label, c in (("C=1", cfg), ("C=4", cfg4)):
+            _profile(torch, Localizer, c, stamps, acc, gyro, scans, label)
+
+    # ---- 8. result ----
     print(smi)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

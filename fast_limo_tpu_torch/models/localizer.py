@@ -9,15 +9,27 @@ device the Localizer was built for (the card unless the caller asks for
 the CPU).  Absolute time stays on the host in float64; the device sees
 float32 offsets from the current scan epoch.
 
+Transfer: each scan rides the packed layout of
+``pipeline.build_scan_step_packed`` — an (N,4) payload, int16 through the
+native packer when ``tpu.quantize_transfer > 0`` (``io/native``), and a
+(K,8) IMU pack carrying the per-scan scalars.  With ``tpu.scan_chunk == 1``
+the payload is packed into pinned host memory and its copy to the card
+started on a side stream the moment the scan arrives (it does not depend
+on IMU coverage), so it overlaps the scan in flight; at dispatch the
+compute stream waits on that copy's event and only the IMU pack is
+copied (``build_scan_step_split``).  With ``scan_chunk = C > 1`` scans
+are dispatched C at a time (``build_scan_chunk_step``, an offline replay
+knob); ``flush()`` sends the partial chunk at the end of a stream.
+``on_dispatch(scan_pack, imu_pack)``, when set, sees the exact host bytes
+of every scan copied, on both paths, in dispatch order.
+
 For long sessions: per-scan outputs are copied to the host in batches and
 their device tensors released (``_bound_retention``); the map evicts far
 voxels on a 16-scan cadence once ``evict_radius`` is set
 (``_maybe_evict``); ``save_checkpoint``/``load_checkpoint`` persist and
 resume the whole state in the JAX package's format; the state queries
-(``get_world_state`` and friends) are fresh at IMU rate.
-
-Not ported yet (ROADMAP.md): split/pinned transfer, int16 quantized
-transfer, chunked replay, the native packer and the telemetry board.
+(``get_world_state`` and friends) are fresh at IMU rate.  ``board()``
+renders the telemetry board (``utils/telemetry``).
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from fast_limo_tpu_torch.io import native
 from fast_limo_tpu_torch.models import mapper
 from fast_limo_tpu_torch.models import pipeline as pl
 from fast_limo_tpu_torch.models import preprocess
@@ -36,6 +49,7 @@ from fast_limo_tpu_torch.ops import dispatch, so3
 from fast_limo_tpu_torch.utils import checkpoint as ckpt
 from fast_limo_tpu_torch.utils import validation
 from fast_limo_tpu_torch.utils.config import Config
+from fast_limo_tpu_torch.utils.telemetry import Telemetry
 
 _OUT_FIELDS = ("scan_stamp", "pos", "quat", "vel", "n_iters", "n_pc2match")
 
@@ -46,13 +60,29 @@ class _PendingScan:
     points: np.ndarray
     t_raw: np.ndarray
     last_pt_time: float
+    # split transfer (scan_chunk == 1): packed, and its copy to the device
+    # started, at arrival
+    scan_buf: Optional[torch.Tensor] = None   # (N,4) int16/f32 on the device
+    t_scale: float = 1.0
+    npts: int = 0
+    host_buf: Optional[np.ndarray] = None     # the bytes copied (pinned on CUDA)
+    copied: Optional[torch.cuda.Event] = None  # end of the copy (CUDA only)
 
 
 class Localizer:
     def __init__(self, cfg: Config, device="cuda"):
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
-        self.scan_step = pl.build_scan_step(cfg, self.device)
+        self.telemetry = Telemetry()
+        self.chunk = max(1, int(cfg.tpu.scan_chunk))
+        build = pl.build_scan_chunk_step if self.chunk > 1 else pl.build_scan_step_split
+        self.scan_step = build(cfg, self.device)
+        # Capture hook: called as on_dispatch(scan_pack (N,4), imu_pack (K,8))
+        # with the exact host bytes copied for every scan, in dispatch
+        # order, on both paths.  Consumers copy what they keep.
+        self.on_dispatch = None
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
         self._prop_step = None
         self._prop_cache: Optional[tuple] = None        # (key, (x, P, abs_t))
         self.state: Optional[pl.LIOState] = None
@@ -75,9 +105,13 @@ class Localizer:
         self.init_ba = np.asarray(cfg.intrinsics.accel_bias, float)
         self._R_imu2bl = np.array(cfg.extrinsics.imu2baselink_R, float).reshape(3, 3).T
 
-        self._raw_outputs: List[tuple] = []   # (epoch, ScanOutput on device | None once copied)
+        # (epoch, ScanOutput on device | None once copied); a chunked
+        # dispatch is one entry (tuple of epochs, outputs stacked on a chunk axis)
+        self._raw_outputs: List[tuple] = []
         self._materialized: List[dict] = []
         self._materialized_entries = 0
+        self.last_output = None            # the last dispatch's ScanOutput (device)
+        self.last_output_scans = 0         # active scans in last_output
         self._structure_checked = False
 
         # rolling-origin eviction for a bounded map: when the map fills past
@@ -91,6 +125,7 @@ class Localizer:
     def update_imu(self, stamp: float, acc, gyro) -> None:
         acc = np.asarray(acc, float)
         gyro = np.asarray(gyro, float)
+        self.telemetry.imu_tick(stamp)
         if self._first_imu_stamp is None:
             self._first_imu_stamp = stamp
         if self._newest_imu_stamp > -np.inf:
@@ -145,8 +180,10 @@ class Localizer:
             t64 = t64 - stamp
         elif self.cfg.sensor_type == preprocess.LIVOX:
             t64 = t64 - stamp * 1e9
-        self._scan_queue.append(_PendingScan(
-            stamp, points, np.ascontiguousarray(t64, np.float32), last_pt))
+        scan = _PendingScan(stamp, points, np.ascontiguousarray(t64, np.float32), last_pt)
+        if self.chunk == 1:
+            self._stage(scan)
+        self._scan_queue.append(scan)
         self._drain()
 
     def _drain(self) -> None:
@@ -154,11 +191,33 @@ class Localizer:
             scan = self._scan_queue[0]
             if self._newest_imu_stamp < scan.last_pt_time:
                 return
+            if self.chunk > 1:
+                # a chunk goes out once all C of its scans are covered;
+                # flush() sends the partial one at the end of a stream
+                if (len(self._scan_queue) < self.chunk or self._newest_imu_stamp
+                        < self._scan_queue[self.chunk - 1].last_pt_time):
+                    return
+                self._dispatch_chunk([self._scan_queue.popleft() for _ in range(self.chunk)])
+                continue
             self._scan_queue.popleft()
             self._dispatch(scan)
 
+    def flush(self) -> None:
+        """Dispatch the covered scans still waiting for a full chunk (end of
+        stream); a no-op with ``scan_chunk == 1``."""
+        while self._scan_queue and self.chunk > 1:
+            scans = []
+            while (self._scan_queue and len(scans) < self.chunk
+                   and self._newest_imu_stamp >= self._scan_queue[0].last_pt_time):
+                scans.append(self._scan_queue.popleft())
+            if not scans:
+                return
+            self._dispatch_chunk(scans)
+
     def _pack_points(self, scan: _PendingScan):
-        """(N,4) f32 rows [x, y, z, t_raw], zero-padded; returns (pack, npts)."""
+        """The scan payload of the pack (no IMU or epoch dependency):
+        ((N,4) rows [x, y, z, t_raw], zero-padded, float32 — or int16 in
+        units of ``quantize_transfer`` and of ``t_scale`` —, t_scale, npts)."""
         N = self.cfg.tpu.max_points_per_scan
         npts = len(scan.points)
         if npts > N:   # uniform stride-downsample overflowing scans
@@ -166,14 +225,22 @@ class Localizer:
             pts, traw, npts = scan.points[sel], scan.t_raw[sel], N
         else:
             pts, traw = scan.points, scan.t_raw
+        quant = float(self.cfg.tpu.quantize_transfer)
+        if quant > 0:
+            pts = np.ascontiguousarray(pts, np.float32)
+            traw = np.ascontiguousarray(traw, np.float32)
+            pack, t_scale, _n = native.pack_scan_i16(pts, traw, N, quant)
+            return pack, t_scale, npts
         pack = np.zeros((N, 4), np.float32)
         pack[:npts, :3] = pts
         pack[:npts, 3] = traw
-        return pack, npts
+        return pack, 1.0, npts
 
-    def _pack_imu(self, scan: _PendingScan):
-        """IMU batch up to (incl.) the first sample ≥ scan end; advances the
-        epoch.  Returns ((K,7) rows [acc, gyro, stamp], n_imu, epoch_shift)."""
+    def _pack_imu(self, scan: _PendingScan, t_scale: float, npts: int):
+        """The IMU half of the pack: the batch up to (incl.) the first
+        sample ≥ scan end, as (K,8) rows [acc, gyro, stamp, aux] with aux =
+        (npts, n_imu, epoch_shift, t_scale, active).  Consumes the IMU queue
+        and advances the epoch, so it runs in dispatch order."""
         batch = []
         while self._imu_queue:
             batch.append(self._imu_queue.popleft())
@@ -188,18 +255,52 @@ class Localizer:
             self._consume_imu_overflow(overflow)
         epoch_shift = 0.0 if self.epoch is None else scan.stamp - self.epoch
         self.epoch = scan.stamp
-        rows = np.zeros((K, 7), np.float32)
+        pack = np.zeros((K, 8), np.float32)
         for i, (s, a, g) in enumerate(batch):
-            rows[i, 0:3] = a
-            rows[i, 3:6] = g
-            rows[i, 6] = s - scan.stamp
-        return rows, len(batch), epoch_shift
+            pack[i, 0:3] = a
+            pack[i, 3:6] = g
+            pack[i, 6] = s - scan.stamp
+        pack[0:5, 7] = (npts, len(batch), epoch_shift, t_scale, 1.0)
+        return pack
+
+    def _pack_scan(self, scan: _PendingScan):
+        """(scan_pack (N,4), imu_pack (K,8)) of one scan packed at once (the
+        chunked path; the one-scan path packs the payload at arrival and
+        the IMU half at dispatch); advances the queues and the epoch."""
+        scan_pack, t_scale, npts = self._pack_points(scan)
+        return scan_pack, self._pack_imu(scan, t_scale, npts)
+
+    def _stage(self, scan: _PendingScan) -> None:
+        """Pack the scan's payload and start its copy to the device (the
+        pinned buffer's lifetime: see ``_to_device``)."""
+        pack, scan.t_scale, scan.npts = self._pack_points(scan)
+        if self._copy_stream is None:
+            scan.scan_buf, scan.host_buf = torch.from_numpy(pack).to(self.device), pack
+            return
+        pinned = torch.from_numpy(pack).pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            scan.scan_buf = torch.empty(pinned.shape, dtype=pinned.dtype, device=self.device)
+            scan.scan_buf.copy_(pinned, non_blocking=True)
+            scan.copied = torch.cuda.Event()
+            scan.copied.record(self._copy_stream)
+        scan.host_buf = pinned.numpy()
+
+    def _to_device(self, host: np.ndarray) -> torch.Tensor:
+        """Copy a host array to the device on the compute stream, without
+        waiting for the work queued there (from pinned memory on CUDA).
+
+        A pinned buffer may be dropped as soon as its copy is queued: PyTorch's
+        caching host allocator records an event on the stream of every
+        non-blocking copy from a ``pin_memory()`` block and does not reuse the
+        block before that event has completed."""
+        t = torch.from_numpy(host)
+        if self._copy_stream is None:
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _imu_tensors(self, rows, n):
-        d = self.device
-        r = torch.from_numpy(rows).to(d)
-        valid = torch.from_numpy(np.arange(rows.shape[0]) < n).to(d)
-        return r[:, 0:3], r[:, 3:6], r[:, 6], valid
+        r = self._to_device(rows)
+        return r[:, 0:3], r[:, 3:6], r[:, 6], torch.arange(rows.shape[0], device=self.device) < n
 
     def _imu_chunks(self, samples):
         """(acc, gyro, stamp, valid) tensors per imu_batch-sized chunk of
@@ -234,27 +335,55 @@ class Localizer:
         self._last_consumed_stamp = samples[-1][0]
         self._prop_cache = None
 
-    def _dispatch(self, scan: _PendingScan) -> None:
+    def _begin_dispatch(self, first_stamp: float) -> None:
         if self.state is None:
-            self._init_device_state(scan.stamp)
+            self._init_device_state(first_stamp)
         elif self.epoch is None:
-            self._anchor_epoch(scan.stamp)
-        pack, npts = self._pack_points(scan)
-        rows, n_imu, epoch_shift = self._pack_imu(scan)
-        d = self.device
-        p = torch.from_numpy(pack).to(d)
-        N = pack.shape[0]
-        acc, gyro, stamp, ivalid = self._imu_tensors(rows, n_imu)
-        b = pl.ScanBatch(
-            points=p[:, :3], t_raw=p[:, 3],
-            valid=torch.from_numpy(np.arange(N) < npts).to(d),
-            stamp=torch.zeros((), dtype=torch.float32, device=d),
-            epoch_shift=torch.tensor(np.float32(epoch_shift), device=d),
-            imu_acc=acc, imu_gyro=gyro, imu_stamp=stamp, imu_valid=ivalid)
-        self.state, out = self.scan_step(self.state, b)
-        self._maybe_evict(out.pos)
-        self._raw_outputs.append((self.epoch, out))
+            self._anchor_epoch(first_stamp)
+
+    def _finish_dispatch(self, out, scans: List[_PendingScan], epoch) -> None:
+        """Eviction, telemetry and the output entry (``epoch``: a tuple of
+        epochs for a chunked dispatch)."""
+        self._maybe_evict(out.pos if self.chunk == 1 else out.pos[len(scans) - 1])
+        for scan in scans:
+            self.telemetry.scan_end(scan.stamp)
+        self.last_output, self.last_output_scans = out, len(scans)
+        self._raw_outputs.append((epoch, out))
         self._bound_retention()
+
+    def _dispatch(self, scan: _PendingScan) -> None:
+        """One scan through the split step; its payload has been copying
+        since it arrived."""
+        self._begin_dispatch(scan.stamp)
+        imu_pack = self._pack_imu(scan, scan.t_scale, scan.npts)
+        if self.on_dispatch is not None:
+            self.on_dispatch(scan.host_buf, imu_pack)
+        if scan.copied is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(scan.copied)
+            scan.scan_buf.record_stream(compute)
+        self.telemetry.scan_begin()
+        self.state, out = self.scan_step(self.state, scan.scan_buf, self._to_device(imu_pack))
+        self._finish_dispatch(out, [scan], self.epoch)
+
+    def _dispatch_chunk(self, scans: List[_PendingScan]) -> None:
+        """Up to C scans through the chunk step, padded to C with inactive
+        elements."""
+        self._begin_dispatch(scans[0].stamp)
+        C, N, K = self.chunk, self.cfg.tpu.max_points_per_scan, self.cfg.tpu.imu_batch
+        sdtype = np.int16 if self.cfg.tpu.quantize_transfer > 0 else np.float32
+        scan_packs = np.zeros((C, N, 4), sdtype)
+        imu_packs = np.zeros((C, K, 8), np.float32)
+        epochs = []
+        for i, scan in enumerate(scans):
+            scan_packs[i], imu_packs[i] = self._pack_scan(scan)
+            epochs.append(self.epoch)
+            if self.on_dispatch is not None:
+                self.on_dispatch(scan_packs[i], imu_packs[i])
+        self.telemetry.scan_begin()
+        self.state, out = self.scan_step(self.state, self._to_device(scan_packs),
+                                         self._to_device(imu_packs))
+        self._finish_dispatch(out, scans, tuple(epochs))
 
     def _bound_retention(self) -> None:
         """Bound the outputs held on the device: scans more than 64 back
@@ -328,19 +457,27 @@ class Localizer:
     # ---------------------------------------------------------------- query
     def _materialize_upto(self, n: int) -> None:
         """Copy outputs [materialized, n) to host dicts in one batched
-        transfer and release their device tensors."""
+        transfer a field and release their device tensors (a chunked entry
+        gives one dict per active scan)."""
         start = self._materialized_entries
         if start >= n:
             return
         pend = self._raw_outputs[start:n]
-        host = [torch.stack([getattr(o, f).to(torch.float64).reshape(-1)
-                             for _, o in pend]).cpu().numpy() for f in _OUT_FIELDS]
-        for i, (epoch, _) in enumerate(pend):
-            self._materialized.append({
-                "stamp": epoch + float(host[0][i, 0]),
-                "pos": host[1][i], "quat": host[2][i], "vel": host[3][i],
-                "n_iters": int(host[4][i, 0]), "n_pc2match": int(host[5][i, 0])})
-            self._raw_outputs[start + i] = (epoch, None)
+        epochs = [e if isinstance(e, tuple) else (e,) for e, _ in pend]
+        # one row a scan: pos is (3,), or (C,3) for a chunked entry
+        host = [torch.cat([getattr(o, f).to(torch.float64).reshape(o.pos.numel() // 3, -1)[:len(ep)]
+                           for ep, (_, o) in zip(epochs, pend)]).cpu().numpy()
+                for f in _OUT_FIELDS]
+        i = 0
+        for ep in epochs:
+            for epoch in ep:
+                self._materialized.append({
+                    "stamp": epoch + float(host[0][i, 0]),
+                    "pos": host[1][i], "quat": host[2][i], "vel": host[3][i],
+                    "n_iters": int(host[4][i, 0]), "n_pc2match": int(host[5][i, 0])})
+                i += 1
+        for j in range(start, n):
+            self._raw_outputs[j] = (self._raw_outputs[j][0], None)
         self._materialized_entries = n
 
     @property
@@ -430,6 +567,19 @@ class Localizer:
         out[0:3, 0:3] = P[12:15, 12:15]
         out[3:6, 3:6] = np.eye(3) * self.cfg.ikfom.cov_gyro
         return out
+
+    def board(self) -> str:
+        """The telemetry board with the newest pose, biases and map size."""
+        info = {}
+        if self.trajectory:
+            t = self.trajectory[-1]
+            info = {"pos": t["pos"], "quat": t["quat"], "vel": t["vel"],
+                    "n_pc2match": t["n_pc2match"]}
+        if self.state is not None:
+            x = self.state.x
+            info.update(bg=self._np(x.bg), ba=self._np(x.ba), grav=self._np(x.grav),
+                        map_points=int(self.state.map.num_points))
+        return self.telemetry.board(info)
 
     # ---------------------------------------------------------- persistence
     def save_checkpoint(self, path: str) -> None:

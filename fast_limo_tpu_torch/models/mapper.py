@@ -8,9 +8,9 @@ per entry, and ``ptable`` (G, WP) its planar mirror
 kernel decodes.  The hash key is the 2×2×2-voxel BLOCK coordinate; a kNN
 gathers the 8 block rows spanning the query's 27-voxel cube.
 
-The map maintenance (insert, evict) is plain tensor work (sorts, gathers,
-one scatter); after the same inserts and evictions ``table``/``ptable``
-equal the JAX package's bit for bit.  The queries end in kernels: ``knn``
+The map maintenance (insert, evict) is plain tensor work (gathers, one
+scatter) around one K9 sort in ``insert``; after the same inserts and
+evictions ``table``/``ptable`` equal the JAX package's bit for bit.  The queries end in kernels: ``knn``
 and the narrow ``radius_search`` branches in K2 (``ops/knn_rows``), the
 wide ``radius_search`` branch in K7 (``ops/knn``).  Sharded maps
 (``num_shards``/``shard_index``/``owned`` in the JAX package) are not
@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from fast_limo_tpu_torch.ops import knn as knn_op
-from fast_limo_tpu_torch.ops import knn_rows, voxel
+from fast_limo_tpu_torch.ops import knn_rows, sort, voxel
 
 E = 16       # entries per planar subgroup
 SUB = 1      # planar subgroups per hash-group row
@@ -182,9 +182,11 @@ def insert(m: VoxelHashMap, pts, valid, *, voxel_size: float) -> VoxelHashMap:
     vc0 = voxel_coords(pts, voxel_size)
     g0 = _hash(block_coords(vc0), G)
 
-    # group-major stable sort on (group, packed voxel): one int64 key
-    key_g = torch.where(valid, g0, torch.full_like(g0, 0x7FFFFFFF))
-    order = torch.sort((key_g << 30) | voxel.pack_key(vc0), stable=True)[1]
+    # group-major sort on (group, packed voxel, index): int32 triples (K9);
+    # the index operand makes the order that of the stable 2-key sort
+    key_g = torch.where(valid, g0, torch.full_like(g0, 0x7FFFFFFF)).to(torch.int32)
+    order = sort.sort3(key_g, voxel.pack_key(vc0).to(torch.int32),
+                       torch.arange(N, dtype=torch.int32, device=dev))[2].long()
     vc = vc0[order]
     pts = pts[order]
     valid = valid[order]

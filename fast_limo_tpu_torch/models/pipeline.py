@@ -1,5 +1,8 @@
 """The per-scan LIO step (port of fast_limo_tpu/models/pipeline.py:
-LIOState, ScanBatch, ScanOutput, init_state, build_scan_step, and
+LIOState, ScanBatch, ScanOutput, init_state, build_scan_step, the
+streaming entry points on the packed layout — fuse_packs,
+build_scan_step_packed, build_scan_step_split (one scan a call, the
+Localizer's default) and build_scan_chunk_step (C scans a call) — and
 build_prop_step, which the Localizer needs to fold an IMU backlog longer
 than the batch into the state and for its IMU-rate state queries).
 
@@ -215,6 +218,129 @@ def build_scan_step(cfg: Config, device="cuda"):
         return s_next, out
 
     return scan_step
+
+
+def fuse_packs(scan_pack: np.ndarray, imu_pack: np.ndarray) -> np.ndarray:
+    """The per-scan host arrays as ONE flat buffer (``build_scan_step_packed``):
+    in int16 mode the f32 IMU rows are bit-cast onto int16 pairs (lossless;
+    the step bit-casts them back), in f32 mode it is a plain concatenation."""
+    if scan_pack.dtype == np.int16:
+        out = np.empty(scan_pack.size + imu_pack.size * 2, np.int16)
+        out[: scan_pack.size] = scan_pack.ravel()
+        out[scan_pack.size:] = np.ascontiguousarray(imu_pack, np.float32).ravel().view(np.int16)
+        return out
+    out = np.empty(scan_pack.size + imu_pack.size, np.float32)
+    out[: scan_pack.size] = scan_pack.ravel()
+    out[scan_pack.size:] = imu_pack.astype(np.float32).ravel()
+    return out
+
+
+def _pack_reader(cfg: Config, device, min_k: int):
+    """``read(scan_pack (N,4), imu_pack (K,8)) → ScanBatch``, the unpack of
+    the packed layout (see ``build_scan_step_packed``).  A quantized
+    payload dequantizes as the JAX step does: one float32 multiply by the
+    float32 LSB (``quantize_transfer``) and by the per-scan ``aux[3]``."""
+    N, K = cfg.tpu.max_points_per_scan, cfg.tpu.imu_batch
+    if K < min_k:
+        raise ValueError(f"imu_batch must be >= {min_k} (the aux column carries "
+                         f"{min_k} scalars), got {K}")
+    quant = float(cfg.tpu.quantize_transfer)
+    lsb = torch.tensor(quant, dtype=torch.float32, device=device)
+    lanes_n = torch.arange(N, device=device)
+    lanes_k = torch.arange(K, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+
+    def read(scan_pack, imu_pack) -> ScanBatch:
+        scan_pack, imu_pack = scan_pack.reshape(N, 4), imu_pack.reshape(K, 8)
+        if quant > 0:
+            points = scan_pack[:, :3].to(torch.float32) * lsb
+            t_raw = scan_pack[:, 3].to(torch.float32) * imu_pack[3, 7]
+        else:
+            points, t_raw = scan_pack[:, :3], scan_pack[:, 3]
+        return ScanBatch(
+            points=points, t_raw=t_raw, valid=lanes_n < imu_pack[0, 7].to(torch.int32),
+            stamp=zero, epoch_shift=imu_pack[2, 7], imu_acc=imu_pack[:, 0:3],
+            imu_gyro=imu_pack[:, 3:6], imu_stamp=imu_pack[:, 6],
+            imu_valid=lanes_k < imu_pack[1, 7].to(torch.int32))
+
+    return read
+
+
+def build_scan_step_packed(cfg: Config, device="cuda"):
+    """The step on ONE flat buffer (``fuse_packs``) of two sections:
+
+    * ``scan_pack`` (N,4) — ``[x, y, z, t_raw]`` rows, zero-padded; float32,
+      or with ``cfg.tpu.quantize_transfer > 0`` int16: xyz in units of
+      ``quantize_transfer`` metres, t_raw in units of ``aux[3]``;
+    * ``imu_pack`` (K,8) f32 — ``[acc(3), gyro(3), stamp, aux]`` rows; the
+      ``aux`` column carries ``aux[0] = n_pts``, ``aux[1] = n_imu``,
+      ``aux[2] = epoch_shift``, ``aux[3] = t_raw scale`` (and ``aux[4] =
+      active`` for the chunk step); bit-cast onto int16 pairs in quantized
+      mode.
+
+    Same results as ``build_scan_step`` on the unpacked batch."""
+    device = dispatch.resolve_device(device)
+    inner = build_scan_step(cfg, device)
+    read = _pack_reader(cfg, device, 4)
+    n_scan = cfg.tpu.max_points_per_scan * 4
+    quantized = float(cfg.tpu.quantize_transfer) > 0
+
+    def packed_step(s: LIOState, pack):
+        imu = pack[n_scan:]
+        if quantized:
+            imu = imu.contiguous().view(torch.float32)
+        return inner(s, read(pack[:n_scan], imu))
+
+    return packed_step
+
+
+def build_scan_step_split(cfg: Config, device="cuda"):
+    """The streaming step on TWO buffers: the scan payload (N,4) and the
+    IMU pack (K,8) of ``build_scan_step_packed``.  The payload does not
+    depend on IMU coverage, so the Localizer starts its copy to the device
+    when the scan arrives, overlapping the scan in flight; only the small
+    IMU pack waits for dispatch.  Same results as the packed step."""
+    device = dispatch.resolve_device(device)
+    inner = build_scan_step(cfg, device)
+    read = _pack_reader(cfg, device, 4)
+
+    def split_step(s: LIOState, scan_pack, imu_pack):
+        return inner(s, read(scan_pack, imu_pack))
+
+    return split_step
+
+
+def _select(cond, a, b):
+    """``torch.where(cond, a, b)`` over matching (nested) NamedTuples."""
+    if isinstance(a, tuple):
+        return type(a)(*(_select(cond, x, y) for x, y in zip(a, b)))
+    return torch.where(cond, a, b)
+
+
+def build_scan_chunk_step(cfg: Config, device="cuda"):
+    """Chunked replay: C scans per call, ``scan_packs (C,N,4)`` and
+    ``imu_packs (C,K,8)`` in the packed layout with ``aux[4] = active``.
+    The elements run in order through the per-scan step; an inactive
+    element (end-of-stream padding of a partial chunk) leaves the carried
+    state exactly as it was (a select, no host sync).  Returns
+    ``(LIOState', ScanOutput)`` with every output stacked on a leading
+    chunk axis, ``n_pc2match = 0`` and ``final_valid`` False on padding."""
+    device = dispatch.resolve_device(device)
+    inner = build_scan_step(cfg, device)
+    read = _pack_reader(cfg, device, 5)
+
+    def chunk_step(s: LIOState, scan_packs, imu_packs):
+        outs = []
+        for scan_pack, imu_pack in zip(scan_packs, imu_packs):
+            active = imu_pack[4, 7] > 0
+            s2, out = inner(s, read(scan_pack, imu_pack))
+            s = _select(active, s2, s)
+            outs.append(out._replace(
+                n_pc2match=torch.where(active, out.n_pc2match, torch.zeros_like(out.n_pc2match)),
+                final_valid=out.final_valid & active))
+        return s, ScanOutput(*(torch.stack(f) for f in zip(*outs)))
+
+    return chunk_step
 
 
 def build_prop_step(cfg: Config, device="cuda"):

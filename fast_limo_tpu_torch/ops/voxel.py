@@ -2,10 +2,11 @@
 fast_limo_tpu/ops/voxel.py; the reference's PCL VoxelGrid,
 Localizer.cpp:313-321).
 
-The voxel id is packed into one 31-bit key (10 bits per axis, invalids
-last), grouped by ONE stable sort, and the centroids accumulate as one
-segmented sum of ``[x, y, z, 1]`` rows in sorted order.  The voxel sets equal
-the JAX package's bit for bit: voxel coordinates come from a true float32
+The voxel id is packed into one 31-bit int32 key (10 bits per axis,
+invalids last), grouped by ONE key/index sort (K9, ``ops/sort``), and the
+centroids accumulate as one segmented sum of ``[x, y, z, 1]`` rows in
+sorted order.  The voxel sets equal the JAX package's bit for bit: voxel
+coordinates come from a true float32
 division ``floor(p / leaf)`` (``floor_div``), never from a multiplication
 by the reciprocal.
 """
@@ -13,6 +14,8 @@ by the reciprocal.
 from __future__ import annotations
 
 import torch
+
+from fast_limo_tpu_torch.ops import sort
 
 
 def floor_div(x, leaf: float):
@@ -35,9 +38,10 @@ def voxel_downsample(pts, valid, leaf: float):
     N = pts.shape[0]
     vc = floor_div(pts, leaf).to(torch.int64)
     key = torch.where(valid, pack_key(vc), torch.full_like(vc[:, 0], 0x7FFFFFFF))
-    key_s, order = torch.sort(key, stable=True)
+    key_s, order = sort.sort_key_val(
+        key.to(torch.int32), torch.arange(N, dtype=torch.int32, device=pts.device))
 
-    fused = torch.cat([pts, valid.to(pts.dtype)[:, None]], dim=1)[order]
+    fused = torch.cat([pts, valid.to(pts.dtype)[:, None]], dim=1)[order.long()]
     valid_s = fused[:, 3] > 0
     pts_s = torch.where(valid_s[:, None], fused[:, :3], torch.zeros_like(fused[:, :3]))
     new_seg = torch.cat([torch.ones(1, dtype=torch.bool, device=pts.device),

@@ -13,8 +13,10 @@ rtol 1e-5 of each entry's sum of term magnitudes (Σ|HᵢHⱼ|: the two sides
 sum the same float32 products in different orders); K5 x atol 1e-4 +
 rtol 1e-3, P atol 1e-3 + rtol 1e-3; K6 x and P atol 2e-4 + rtol 1e-3 with
 n_iters, ok and the stale count exact; K7 and K2 at k = 64 sq and valid
-bit-equal, neighbours equal.  Also: the Localizer lands on the card by
-default, and a checkpoint round trip on the card.
+bit-equal, neighbours equal; K9 bit-equal.  Also: the Localizer lands on
+the card by default, a checkpoint round trip on the card, and the split
+transfer (payload copied on a side stream at arrival) gives the
+trajectory of synchronous copies bit for bit.
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ import torch
 
 from fast_limo_tpu_torch.models import iekf, mapper, measurement
 from fast_limo_tpu_torch.models import state as st
-from fast_limo_tpu_torch.ops import (deskew_kernel, hstats, knn, knn_rows, plane_kernel,
+from fast_limo_tpu_torch.ops import (deskew_kernel, hstats, knn, knn_rows, plane_kernel, sort,
                                      update_body, update_loop)
 from fast_limo_tpu_torch.utils import presets
 
@@ -251,3 +253,45 @@ def test_checkpoint_round_trip_on_the_card(scan, tmp_path):
     for key, v in checkpoint._flatten_with_paths(again.state).items():
         assert v.device == flat[key].device and torch.equal(v, flat[key]), key
     assert again.epoch == loc.epoch
+
+
+@pytest.mark.parametrize("N", [1, 127, 10000, 32768])
+def test_k9_sort3(dev, N):
+    """K9 against its plain version: keys with duplicates, negatives and
+    the INT32_MAX sentinel, a unique index operand (the callers' form) and
+    a repeated one."""
+    rng = np.random.default_rng(N)
+    k1 = rng.integers(-300, 300, N).astype(np.int32)
+    k1[rng.random(N) < 0.2] = np.int32(0x7FFFFFFF)
+    k2 = rng.integers(-(1 << 30), 1 << 30, N).astype(np.int32)
+    k2[rng.random(N) < 0.5] = 7
+    for v in (np.arange(N, dtype=np.int32), rng.integers(-2, 2, N).astype(np.int32)):
+        args = [torch.tensor(a, device=dev) for a in (k1, k2, v)]
+        got = _once(sort.sort3, lambda: sort.sort3(*args))
+        for g, w in zip(got, sort.sort3_plain(*args)):
+            assert g.shape == (N,) and torch.equal(g, w)
+    key, idx = args[0], torch.arange(N, dtype=torch.int32, device=dev)
+    got = _once(sort.sort3, lambda: sort.sort_key_val(key, idx))
+    want = sort.sort3_plain(key, idx, idx)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[2])
+
+
+def test_k9_refuses_what_it_does_not_take(dev):
+    a = torch.arange(8, dtype=torch.int32, device=dev)
+    for bad in ((a.long(), a, a), (a[::2], a[:4], a[:4]), (a[:0], a[:0], a[:0])):
+        with pytest.raises(ValueError):
+            sort.sort3(*bad)
+
+
+def test_split_transfer_matches_synchronous_copies(dev, scan):
+    """The scan fixture's replay (int16 payloads copied on a side stream at
+    arrival, IMU packs from pinned memory) against the same replay with
+    blocking copies on the compute stream."""
+    from fast_limo_tpu_torch.models.localizer import Localizer
+
+    cfg, _, loc = scan
+    assert cfg.tpu.quantize_transfer > 0 and loc._copy_stream is not None
+    again = Localizer(cfg, device=dev)
+    again._copy_stream = None
+    presets.replay(again, presets.bench_sequence(n_scans=6, points_per_scan=4096))
+    np.testing.assert_array_equal(again.positions(), loc.positions())

@@ -1,7 +1,10 @@
 """fast_limo_tpu_torch never imports JAX nor the JAX package: a fresh
 interpreter imports the port, runs two tiny CPU scan steps through the
-Localizer, queries the map (K7's plain version), writes and reads a
-checkpoint, and JAX is still absent from sys.modules."""
+Localizer at the bench's int16 transfer (the native packer), the same
+scans chunked (C = 2, flushed) and through AsyncIngest, renders the
+board, queries the map (K7's plain version), sorts with K9's plain
+version, writes and reads a checkpoint, and JAX is still absent from
+sys.modules."""
 
 import os
 import pathlib
@@ -17,11 +20,12 @@ import sys
 import tempfile
 import numpy as np
 import torch
-from fast_limo_tpu_torch.io import synthetic
+from fast_limo_tpu_torch.io import native, synthetic
+from fast_limo_tpu_torch.io.stream import AsyncIngest
 from fast_limo_tpu_torch.models import mapper
 from fast_limo_tpu_torch.models.localizer import Localizer
-from fast_limo_tpu_torch.ops import knn
-from fast_limo_tpu_torch.utils import checkpoint, presets, validation
+from fast_limo_tpu_torch.ops import knn, sort
+from fast_limo_tpu_torch.utils import checkpoint, presets, telemetry, validation
 
 cfg = presets.kitti_like_cfg()
 cfg.tpu.max_points_per_scan = 256
@@ -33,6 +37,20 @@ seq = presets.bench_sequence(n_scans=2, points_per_scan=256)
 loc = Localizer(cfg, device="cpu")
 presets.replay(loc, seq)
 assert loc.positions().shape == (2, 3) and np.isfinite(loc.positions()).all()
+assert cfg.tpu.quantize_transfer > 0 and native.get_lib() is not None
+cfg.tpu.scan_chunk = 2
+chunked = Localizer(cfg, device="cpu")
+presets.replay(chunked, seq)
+chunked.flush()
+assert np.array_equal(chunked.positions(), loc.positions())
+fed = Localizer(cfg, device="cpu")
+with AsyncIngest(fed) as ingest:
+    presets.replay(ingest, seq)
+    ingest.flush()
+assert np.array_equal(fed.positions(), loc.positions())
+assert "Map points" in loc.board() and telemetry.Telemetry().stats()["scans_per_s"] == 0.0
+k = torch.tensor([2, 0, 1], dtype=torch.int32)
+assert sort.sort3(k, k, k)[0].tolist() == [0, 1, 2] and sort.sort3.launches == 0
 q = torch.tensor(checkpoint.map_points(loc.state.map)[:16])
 _, sq, valid = mapper.radius_search(loc.state.map, q, 3.0, voxel_size=cfg.map_voxel_size)
 assert valid[:, 0].all() and knn.masked_topk.launches == 0

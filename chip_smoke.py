@@ -22,10 +22,15 @@ Phases (each prints its own lines):
               branches: K2 (k=5), K3, K4, K5 must launch; its x/P are
               compared with the whole-loop kernel's on that scan.
 5. kernels  — every kernel's public wrapper against its plain PyTorch
-              version on the card, on inputs captured from phases 3-4
+              version on the card, on inputs captured from phases 3-4 and,
+              for K8, from phase 8, which therefore runs before this one
               (K9 on the captured voxel sort, N = 32768, and insert sort,
               N = 10000: all three outputs bit-equal, with its CUDA
-              launches a call counted by torch.profiler):
+              launches a call counted by torch.profiler; K8 against its
+              plain version gain_math, rtol 1e-3 + 1e-3 of the largest
+              entry, and against float64 truth within 12× the float32
+              library solve's error + 2e-5 of the largest entry, the rule
+              of tests/test_gain.py):
               each launches once, agrees elementwise within the stated
               tolerances, and both times are taken (CUDA events, median),
               with the bound (bytes over HBM rate or operations over the
@@ -54,7 +59,28 @@ Phases (each prints its own lines):
               library and bit-equal to its NumPy twin on every scan, and
               both are timed on the host (ms a scan at N = 32768); (e)
               per-scan wall p50/p95 of (a) beside phase 3's.
-8. result   — the card's name and power limit, the kernels JSON line, then
+8. split    — the scans of phase 3 through Localizer(cfg, split_body=True):
+              every scan's update is the per-iteration loop around the gain
+              kernel K8 (chart projection, guard and Joseph covariance in
+              plain torch).  K8 must launch (max_iters + 1) times a scan, K5
+              and K6 never; ATE < 0.15 m; the poses within rtol 1e-3 / atol
+              2e-4 (phase 4's bounds) of phase 3's.  Prints per-scan wall
+              p50/p95, host syncs and guard eigh calls beside phase 3's.
+9. slam     — the SLAM engine at the same configuration: (a) the bench's
+              soak (bench.py:227-274: 192 scans of a 9 m closed circuit,
+              loop closure, keyframe cap 64, eviction armed): at least one
+              loop closed, keyframe RMSE and last-60-scan RMSE < 0.3 m;
+              wall ms of one loop detection (ScanContext + ICP +
+              refinement), one graph optimisation and one map rebuild;
+              (b) the bench's corridor (bench.py:190-224, 48 scans) with and
+              without 2 Hz GPS priors: the GPS run's keyframe RMSE below
+              the odometry-only one; (c) the soak's session saved, loaded
+              into a fresh SLAM and two later scans relocalized: success,
+              within 0.5 m of ground truth at mid-sweep; (d) the CLI
+              in-process, `synthetic --scans 24 --debug-dump … --out …`:
+              its JSON line has ate_m < 0.15 and the dump every DebugOutput
+              field.
+10. result  — the card's name and power limit, the kernels JSON line, then
               the final status line.
 
 Usage: python3 chip_smoke.py [--scans N] [--profile]
@@ -555,6 +581,226 @@ def _transfer_phase(dev, cfg, seq, loc1, stamps, acc, gyro, scans, scan_ms):
           f"{np.percentile(steady, 95):.2f}", flush=True)
 
 
+def _split_phase(dev, cfg, seq, loc1, stamps, acc, gyro, scans, scan_ms, counts, zero, syncs1):
+    """Phase 8: the scans of phase 3 with the split update body.  Returns
+    (launch counts, the arguments of one captured K8 call)."""
+    import torch
+
+    from fast_limo_tpu_torch.io import synthetic
+    from fast_limo_tpu_torch.models import iekf
+    from fast_limo_tpu_torch.models.localizer import Localizer
+    from fast_limo_tpu_torch.ops import gain
+
+    cap, o_gain = {}, gain._launch
+
+    def gain_cap(*a):
+        if gain.gain.launches == 4 * (WARMUP + 4):   # a steady scan's first evaluation
+            cap["gain"] = tuple(t.clone() if torch.is_tensor(t) else t for t in a)
+        return o_gain(*a)
+
+    gain._launch = gain_cap
+    zero()
+    iekf.counters.host_syncs = iekf.counters.loop_fallbacks = iekf.counters.guard_eighs = 0
+    loc = Localizer(cfg, device=dev, split_body=True)
+    times = _replay_timed(torch, loc, "_dispatch", stamps, acc, gyro, scans)
+    gain._launch = o_gain
+    c = counts()
+    traj, t1 = loc.trajectory, loc1.trajectory
+    if len(traj) != len(scans):
+        _fail(f"split-body replay has {len(traj)} poses, want {len(scans)}")
+    est = loc.positions()
+    ate = synthetic.ate_rmse(est, seq.traj.pos(loc.stamps()))
+    evals = cfg.ikfom.MAX_NUM_ITERS + 1
+    updated = sum(1 for t in traj if t["n_pc2match"] > 1)
+    ms = np.asarray([m for m, _ in times])[WARMUP:]
+    steady = scan_ms[WARMUP:]
+    print(f"[smoke] split: {len(traj)} scans, ATE {ate:.4f} m | launches {json.dumps(c)} | "
+          f"n_iters {[t['n_iters'] for t in traj]}", flush=True)
+    print(f"[smoke] split: scan ms p50 {np.percentile(ms, 50):.2f} p95 {np.percentile(ms, 95):.2f}"
+          f" | host syncs {iekf.counters.host_syncs} | guard eigh calls "
+          f"{iekf.counters.guard_eighs} || phase 3: p50 {np.percentile(steady, 50):.2f} p95 "
+          f"{np.percentile(steady, 95):.2f} | host syncs {syncs1}", flush=True)
+    if c["gain"] != evals * updated or updated != len(scans):
+        _fail(f"K8 launched {c['gain']} times, want {evals} for each of {updated} updated scans")
+    if any(not 1 <= t["n_iters"] <= evals for t in traj):
+        _fail("split body: n_iters outside 1 … max_iters + 1")
+    if c["update_body"] or c["update_loop"]:
+        _fail(f"split body launched K5 {c['update_body']} / K6 {c['update_loop']} times")
+    for name in ("deskew", "knn_rows", "fit_planes", "hstats", "sort3"):
+        if c[name] <= 0:
+            _fail(f"kernel {name} did not launch on the split-body path")
+    if not ate < 0.15:
+        _fail(f"split-body ATE {ate:.4f} m >= 0.15 m")
+    dpos = dquat = 0.0
+    for i, (a, b) in enumerate(zip(traj, t1)):
+        dpos = max(dpos, _close(f"split pos, scan {i}", torch.tensor(a["pos"]),
+                                torch.tensor(b["pos"]), 1e-3, 2e-4))
+        dquat = max(dquat, _close(f"split quat, scan {i}", torch.tensor(a["quat"]),
+                                  torch.tensor(b["quat"]), 1e-3, 2e-4))
+    print(f"[smoke] split: vs phase 3 (K6, K5 on its fallbacks) max |dpos| {dpos:.3e} m, "
+          f"max |dquat| {dquat:.3e} over all {len(traj)} scans", flush=True)
+    if "gain" not in cap:
+        _fail("no K8 call was captured in the split-body replay")
+    return c, cap["gain"]
+
+
+def _drive(engine, seq, gps_every: float = 0.0):
+    """Replay a synthetic sequence in arrival order (then flush); with
+    ``gps_every`` seconds > 0, GPS fixes at that period (ground truth plus a
+    fixed 2-3 cm offset, as bench.py:190-224 feeds them)."""
+    stamps, acc, gyro = seq.imu_stream()
+    scans = [seq.scan(i) for i in range(seq.n_scans)]
+    si, last_gps = 0, -1e9
+    for k in range(len(stamps)):
+        engine.update_imu(stamps[k], acc[k], gyro[k])
+        if gps_every > 0 and stamps[k] - last_gps >= gps_every:
+            last_gps = stamps[k]
+            gt = seq.traj.pos(np.asarray([stamps[k]]))[0]
+            engine.update_gps(stamps[k], gt + 0.02 * np.array([1, -1, 0.5]))
+        while si < len(scans) and scans[si][0] <= stamps[k]:
+            engine.update_pointcloud(scans[si][1], scans[si][2], scans[si][0])
+            si += 1
+    engine.flush()
+    return scans
+
+
+def _kf_rmse(slam, seq) -> float:
+    kfp = np.array([kf.pos for kf in slam.keyframes])
+    kgt = seq.traj.pos(np.array([kf.stamp for kf in slam.keyframes]))
+    return float(np.sqrt(np.mean(np.sum((kfp - kgt) ** 2, axis=1))))
+
+
+def _slam_phase(dev, cfg, counts, zero):
+    """Phase 9: soak with loop closure, GPS corridor, session + relocalize,
+    the CLI."""
+    import contextlib
+    import io
+
+    import torch
+
+    from fast_limo_tpu_torch import cli
+    from fast_limo_tpu_torch.models import pipeline as pl
+    from fast_limo_tpu_torch.models.slam import SLAM
+    from fast_limo_tpu_torch.ops import dispatch
+    from fast_limo_tpu_torch.utils import presets
+
+    # (a) the soak
+    seq = presets.soak_sequence(192)
+    slam = SLAM(cfg, presets.soak_loop_cfg())
+    slam.loc.evict_radius, slam.loc.evict_occupancy = 30.0, 0.002
+    wall = {"detect": [], "optimize": [], "rebuild": []}
+
+    def timed(name, key, nested):
+        """Time slam.<name> on the host between two synchronises, less the
+        time of the nested calls timed under the keys ``nested``."""
+        orig = getattr(slam, name)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t, before, loops = time.perf_counter(), sum(map(sum, map(wall.get, nested))), \
+                slam.n_loops_closed
+            orig(*a)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t) - (sum(map(sum, map(wall.get, nested))) - before)
+            if key != "detect" or slam.n_loops_closed > loops:   # detections that closed a loop
+                wall[key].append(ms)
+
+        setattr(slam, name, run)
+
+    timed("_rebuild_map", "rebuild", ())
+    timed("_optimize_and_correct", "optimize", ("rebuild",))
+    timed("_detect_loop", "detect", ("optimize", "rebuild"))
+    zero()
+    t0 = time.perf_counter()
+    scans = _drive(slam, seq)
+    torch.cuda.synchronize()
+    t_soak = time.perf_counter() - t0
+    c = counts()
+    est, gt = slam.positions(), seq.traj.pos(slam.stamps())
+    kf_rmse = _kf_rmse(slam, seq)
+    tail_rmse = float(np.sqrt(np.mean(np.sum((est[-60:] - gt[-60:]) ** 2, axis=1))))
+
+    def p50(v):
+        return f"{np.percentile(v, 50):.1f} (x{len(v)})" if v else "none"
+
+    print(f"[smoke] slam: (a) soak {len(est)} scans in {t_soak:.1f} s (data included) | loops "
+          f"{slam.n_loops_closed} | keyframes {len(slam.keyframes)} | map rebuilds "
+          f"{slam.n_rebuilds} | keyframe RMSE {kf_rmse:.4f} m | last-60-scan RMSE "
+          f"{tail_rmse:.4f} m | launches {json.dumps(c)}", flush=True)
+    print(f"[smoke] slam: (a) wall ms p50: loop detection (ScanContext + ICP + refinement) "
+          f"{p50(wall['detect'])} | graph optimise + state correction {p50(wall['optimize'])} | "
+          f"map rebuild {p50(wall['rebuild'])}", flush=True)
+    if len(est) != seq.n_scans or not np.isfinite(est).all():
+        _fail(f"soak has {len(est)} poses or non-finite values")
+    if slam.n_loops_closed < 1:
+        _fail("the soak closed no loop")
+    if not (kf_rmse < 0.3 and tail_rmse < 0.3):
+        _fail(f"soak keyframe RMSE {kf_rmse:.4f} m / tail RMSE {tail_rmse:.4f} m (< 0.3 m wanted)")
+    for name in ("deskew", "knn_rows", "update_loop", "sort3"):
+        if c[name] <= 0:
+            _fail(f"kernel {name} did not launch under the SLAM engine")
+    if slam.n_rebuilds and c["sort3"] <= 2 * seq.n_scans:
+        _fail("the map rebuild's inserts did not go through K9")
+
+    # (c) session: save, load into a fresh engine, relocalize two later scans
+    prefix = os.path.join(dispatch.BUILD_DIR, "smoke_session")
+    slam.save_session(prefix)
+    fresh = SLAM(cfg, presets.soak_loop_cfg())
+    fresh.load_session(prefix)
+    (sa, pa, _), (sb, pb, _) = scans[150], scans[151]
+    res, vel = fresh.relocalize_bootstrap(pa, np.ones(len(pa), bool), sa,
+                                          pb, np.ones(len(pb), bool), sb)
+    gt_mid = seq.traj.pos(np.asarray([sb + 0.5 / seq.scan_rate]))[0]
+    err = float(np.linalg.norm(res.pos - gt_mid))
+    on_dev = fresh.loc.state.x.pos.device
+    print(f"[smoke] slam: (c) session of {len(fresh.keyframes)} keyframes reloaded on {on_dev} | "
+          f"relocalized scans 150/151: success {res.success}, keyframe {res.keyframe_index}, "
+          f"sc {res.sc_dist:.3f}, icp rmse {res.icp_rmse:.3f}, |pos − truth at mid-sweep| "
+          f"{err:.3f} m, |v| {np.linalg.norm(vel):.2f} m/s", flush=True)
+    if not (res.success and err < 0.5):
+        _fail("relocalization in the reloaded session failed or is off by >= 0.5 m")
+    if not np.allclose(fresh.loc.state.x.pos.cpu().numpy(), res.pos, atol=1e-5):
+        _fail("the relocalized pose did not reach the filter state")
+    for suffix in (".state.npz", ".keyframes.npz"):
+        os.remove(prefix + suffix)
+
+    # (b) the corridor with and without 2 Hz GPS priors
+    rmse = {}
+    for key, every in (("odo", 0.0), ("gps", 0.5)):
+        seq_c = presets.bench_sequence(seed=7, n_scans=48)
+        slam_c = SLAM(cfg, presets.corridor_gps_loop_cfg())
+        _drive(slam_c, seq_c, gps_every=every)
+        rmse[key] = (_kf_rmse(slam_c, seq_c), len(slam_c.keyframes), len(slam_c.gps_factors))
+    print(f"[smoke] slam: (b) corridor, 48 scans: keyframe RMSE odometry only "
+          f"{rmse['odo'][0]:.4f} m ({rmse['odo'][1]} keyframes) | with 2 Hz GPS "
+          f"{rmse['gps'][0]:.4f} m ({rmse['gps'][2]} GPS factors)", flush=True)
+    if not (rmse["gps"][2] > 0 and rmse["gps"][0] < rmse["odo"][0]):
+        _fail("GPS priors did not lower the corridor's keyframe RMSE")
+
+    # (d) the CLI, in-process
+    out_path = os.path.join(dispatch.BUILD_DIR, "smoke_cli.tum")
+    dump_path = os.path.join(dispatch.BUILD_DIR, "smoke_cli_debug.npz")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["synthetic", "--scans", "24", "--debug-dump", dump_path, "--out", out_path])
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    if rc or not lines:
+        _fail(f"the CLI returned {rc} and printed no JSON line")
+    info = json.loads(lines[-1])
+    dump = np.load(dump_path)
+    missing = [f for f in pl.DebugOutput._fields if f not in dump.files]
+    with open(out_path) as f:
+        n_tum = sum(1 for _ in f)
+    print(f"[smoke] slam: (d) CLI synthetic --scans 24: {json.dumps(info)} | {n_tum} TUM lines | "
+          f"debug dump fields {len(dump.files)} (n_stale {int(dump['n_stale'])}, loop_fallback "
+          f"{bool(dump['loop_fallback'])}, matches kept {int(dump['match_keep'].sum())})",
+          flush=True)
+    if missing or not (info["scans"] == 24 and info["ate_m"] < 0.15 and n_tum == 24):
+        _fail(f"CLI run: {info}, {n_tum} TUM lines, missing debug fields {missing}")
+    os.remove(out_path)
+    os.remove(dump_path)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=24)
@@ -579,7 +825,7 @@ def main() -> None:
     from fast_limo_tpu_torch.models import state as st
     from fast_limo_tpu_torch.models.localizer import Localizer
     from fast_limo_tpu_torch.io import synthetic
-    from fast_limo_tpu_torch.ops import (deskew_kernel, dispatch, hstats, knn, knn_rows,
+    from fast_limo_tpu_torch.ops import (deskew_kernel, dispatch, gain, hstats, knn, knn_rows,
                                          plane_kernel, sort, update_body, update_loop)
     from fast_limo_tpu_torch.utils import presets
 
@@ -612,12 +858,18 @@ def main() -> None:
                         "fast_limo_tpu/ops/update_loop.py:394"),
         "masked_topk": (knn.masked_topk, "fast_limo_tpu_torch/csrc/masked_topk.cu",
                         "fast_limo_tpu/ops/knn.py:52"),
+        "gain": (gain.gain, "fast_limo_tpu_torch/csrc/gain.cu",
+                 "fast_limo_tpu/ops/gain.py:157"),
         "sort3": (sort.sort3, "fast_limo_tpu_torch/csrc/sort3.cu",
                   "fast_limo_tpu/ops/sort.py:98"),
     }
 
     def counts():
         return {k: w[0].launches for k, w in wrappers.items()}
+
+    def zero():
+        for w in wrappers.values():
+            w[0].launches = 0
 
     # ---- 3. main path ----
     cfg = presets.kitti_like_cfg()
@@ -772,6 +1024,10 @@ def main() -> None:
     print(f"[smoke] fallback: exact loop vs K6 on scan {capture_at}: max|dx| {ex:.2e} "
           f"max|dP| {eP:.2e}", flush=True)
 
+    # ---- 8. the split update body (before phase 5: K8's inputs come from it) ----
+    split_counts, gain_args = _split_phase(dev, cfg, seq, loc, stamps, acc, gyro, scans,
+                                           np.asarray(scan_ms), counts, zero, syncs)
+
     # ---- 5. kernel vs plain on captured main-path inputs ----
     # Each kernel is called through its public wrapper (the code the main
     # path runs) and held elementwise to its plain version on the same CUDA
@@ -893,6 +1149,34 @@ def main() -> None:
            it6 * ((540 + 8 * W6) * Np6 + 3e5),
            extra=f"(Np={Np6}, n_iters {it6}, ok {bool(a[2][1] > 0)}, stale {int(a[2][4])})")
 
+    # K8 gain — against its plain version gain_math (rtol 1e-3 + 1e-3 of
+    # the largest entry: the plain version's products are library matmuls,
+    # the same float32 terms in another order through an ill-conditioned
+    # 12×12 solve) and against float64 truth by the rule of
+    # tests/test_gain.py (error ≤ 12× the float32 library solve's + 2e-5 of
+    # the largest entry); no single PyTorch call computes it
+    g_HTH, g_HTh, g_P, g_R = gain_args
+    inv_R8 = torch.tensor(1.0 / g_R, device=dev)
+
+    def k8_plain():
+        return gain.gain_math(g_HTH, g_HTh, g_P[:, :gain.M].contiguous(), inv_R8)
+
+    a, b = _once("K8", gain.gain, lambda: gain.gain(g_HTH, g_HTh, g_P, g_R)), k8_plain()
+    lib8 = gain.gain_reference(g_HTH, g_HTh, g_P, g_R)
+    truth8 = gain.gain_reference(g_HTH.double(), g_HTh.double(), g_P.double(), g_R)
+    err = 0.0
+    for nm, g8, p8, l8, t8 in zip(("K_x", "K_h", "K"), a, b, lib8, truth8):
+        err = max(err, _close(f"K8 {nm}", g8, p8, 1e-3, 1e-3 * float(p8.abs().max())))
+        s8 = float(t8.abs().max()) + 1e-12
+        e_k, e_l = _maxerr(g8, t8) / s8, _maxerr(l8, t8) / s8
+        if not e_k <= 12.0 * e_l + 2e-5:
+            _fail(f"K8 {nm}: error to float64 truth {e_k:.2e} > 12 x library {e_l:.2e} + 2e-5")
+    # ~3e4 float32 operations: the 12×12 factorization and elimination on a
+    # 35-wide augmented matrix, three small products; P's columns 0:12 read
+    report("gain", err, lambda: gain.gain(g_HTH, g_HTh, g_P, g_R), k8_plain,
+           4 * (144 + 12 + 276) + _nbytes(*a), 3e4, launches=split_counts["gain"],
+           extra=f"({split_counts['gain']} launches in the split-body replay)")
+
     # K9 sort3 — all three outputs bit-equal to the plain version, on the
     # voxel sort (N = 32768) and the insert sort (N = 10000) of the
     # captured scan; one PyTorch call: the stable int64 packed-key sort the
@@ -928,7 +1212,10 @@ def main() -> None:
         for label, c in (("C=1", cfg), ("C=4", cfg4)):
             _profile(torch, Localizer, c, stamps, acc, gyro, scans, label)
 
-    # ---- 8. result ----
+    # ---- 9. the SLAM engine and its CLI ----
+    _slam_phase(dev, cfg, counts, zero)
+
+    # ---- 10. result ----
     print(smi)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

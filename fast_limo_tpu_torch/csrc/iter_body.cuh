@@ -4,8 +4,8 @@
 // memory workspace:
 //
 //   J₁ chart projection   dx_new = J₁·dx ; P_it = J₁·P·J₁ᵀ
-//   gain                  masked Cholesky compression of HᵀH, Gauss-Jordan
-//                         WITH partial pivoting on Sᵀ (load-bearing)
+//   gain                  fl_gain_math (gain.cuh): masked Cholesky compression
+//                         of HᵀH, Gauss-Jordan WITH partial pivoting on Sᵀ
 //   dx_                   = K_h + K_x·dx_new[:12] − dx_new
 //   degeneracy guard      6×6 cyclic Jacobi eigh, ascending sort, spectral
 //                         projector on the pose head
@@ -18,6 +18,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "gain.cuh"
 
 struct FlIterWS {
   float P[FL_NS * FL_NS];     // P_prop (in)
@@ -26,18 +27,7 @@ struct FlIterWS {
   float T[FL_NS * FL_NS];
   float M0[FL_NS * FL_NS];
   float Pf[FL_NS * FL_NS];    // out
-  float PHt[FL_NS * FL_M];
-  float K[FL_NS * FL_M];
-  float Kx[FL_NS * FL_M];
-  float Ht[FL_M * FL_M];
-  float L[FL_M * FL_M];
-  float S[FL_M * FL_M];
-  float Aug[FL_M * (FL_M + FL_NS)];
-  float HTH[FL_M * FL_M];     // in
-  float HTh[FL_M];            // in
-  float h[FL_M];
-  float fac[FL_M];
-  float Kh[FL_NS];
+  FlGainWS g;                 // HTH, HTh (in); K, Kx, Kh (gain.cuh)
   float x[FL_XF];             // current iterate (in)
   float xp[FL_XF];            // prior x_prop (in)
   float dx[FL_NS];            // x ⊟ x_prop (in)
@@ -161,97 +151,14 @@ FL_DEV void fl_iter_body(FlIterWS* w, float inv_R, float D) {
   fl_blk_mm(w->T, w->J, NS, false, w->P, NS, false, NS, NS, NS);
   fl_blk_mm(w->Pit, w->T, NS, false, w->J, NS, true, NS, NS, NS);
 
-  // ---- gain: masked Cholesky compression (serial, 12×12) ----
-  if (tid == 0) {
-    float A[FL_M * FL_M];
-    bool iszero[FL_M];
-    float dmax = -INFINITY;
-    for (int i = 0; i < M * M; ++i) A[i] = w->HTH[i];
-    for (int j = 0; j < M; ++j) {
-      float dj = A[j * M + j];
-      iszero[j] = dj == 0.0f;
-      dmax = fmaxf(dmax, dj);
-      if (iszero[j]) A[j * M + j] = 1.0f;
-    }
-    float dead = 1e-12f * dmax;
-    for (int i = 0; i < M * M; ++i) w->L[i] = 0.0f;
-    for (int j = 0; j < M; ++j) {
-      float a[FL_M];
-      for (int i = 0; i < M; ++i) {
-        float acc = 0.0f;
-        for (int m = 0; m < M; ++m) acc += w->L[i * M + m] * w->L[j * M + m];
-        a[i] = A[i * M + j] - acc;
-      }
-      float d = a[j];
-      float inv_p = d > dead ? 1.0f / sqrtf(fmaxf(d, 1e-30f)) : 0.0f;
-      for (int i = 0; i < M; ++i) w->L[i * M + j] = i >= j ? a[i] * inv_p : 0.0f;
-    }
-    for (int i = 0; i < M; ++i)
-      for (int j = 0; j < M; ++j) w->Ht[i * M + j] = iszero[i] ? 0.0f : w->L[j * M + i];
-    for (int i = 0; i < M; ++i) w->h[i] = 0.0f;
-    for (int i = 0; i < M; ++i) {
-      float acc = 0.0f;
-      for (int m = 0; m < M; ++m) acc += w->L[i * M + m] * w->h[m];
-      acc = w->HTh[i] - acc;
-      float dd = w->L[i * M + i];
-      w->h[i] = acc * (dd != 0.0f ? 1.0f / dd : 0.0f);
-    }
-    for (int i = 0; i < M; ++i)
-      if (iszero[i]) w->h[i] = 0.0f;
-  }
-  __syncthreads();
-  // PH̃ᵀ = P_it[:, :12]·H̃ᵀ ; S = H̃·PH̃ᵀ[:12]/R + I
-  fl_blk_mm(w->PHt, w->Pit, NS, false, w->Ht, M, true, NS, M, M);
-  fl_blk_mm(w->S, w->Ht, M, false, w->PHt, M, false, M, M, M);
-  const int AW = M + NS;
-  for (int o = tid; o < M * AW; o += nt) {
-    int i = o / AW, j = o % AW;
-    w->Aug[o] = j < M ? w->S[j * M + i] * inv_R + (i == j ? 1.0f : 0.0f)
-                      : w->PHt[(j - M) * M + i];
-  }
-  __syncthreads();
-  // ---- Gauss-Jordan with partial pivoting on [Sᵀ | PH̃ᵀᵀ] ----
-  for (int k = 0; k < M; ++k) {
-    if (tid == 0) {
-      int piv = k;
-      float best = -1.0f;
-      for (int i = 0; i < M; ++i) {
-        float c = i >= k ? fabsf(w->Aug[i * AW + k]) : -1.0f;
-        if (c > best) { best = c; piv = i; }
-      }
-      float pkv = w->Aug[piv * AW + k];
-      float inv_pk = pkv != 0.0f ? 1.0f / pkv : 0.0f;
-      for (int j = 0; j < AW; ++j) {
-        float rp = w->Aug[piv * AW + j], rk = w->Aug[k * AW + j];
-        w->Aug[piv * AW + j] = rk;
-        w->Aug[k * AW + j] = rp * inv_pk;
-      }
-      for (int i = 0; i < M; ++i) w->fac[i] = i == k ? 0.0f : w->Aug[i * AW + k];
-    }
-    __syncthreads();
-    for (int o = tid; o < M * AW; o += nt) {
-      int i = o / AW, j = o % AW;
-      if (i != k) w->Aug[o] = w->Aug[o] - w->fac[i] * w->Aug[k * AW + j];
-    }
-    __syncthreads();
-  }
-  for (int o = tid; o < NS * M; o += nt) {
-    int i = o / M, j = o % M;
-    w->K[o] = w->Aug[j * AW + M + i] * inv_R;
-  }
-  __syncthreads();
-  fl_blk_mm(w->Kx, w->K, M, false, w->Ht, M, false, NS, M, M);
-  for (int i = tid; i < NS; i += nt) {
-    float acc = 0.0f;
-    for (int j = 0; j < M; ++j) acc += w->K[i * M + j] * w->h[j];
-    w->Kh[i] = acc;
-  }
-  __syncthreads();
+  // ---- gain (gain.cuh): K_x, K_h, K from (HᵀH, Hᵀh, P_it[:, :12], 1/R) ----
+  fl_gain_math(&w->g, w->Pit, NS, inv_R);
+
   // ---- dx_ = K_h + K_x·dx_new[:12] − dx_new ----
   for (int i = tid; i < NS; i += nt) {
     float acc = 0.0f;
-    for (int j = 0; j < M; ++j) acc += w->Kx[i * M + j] * w->dxn[j];
-    w->dxo[i] = w->Kh[i] + acc - w->dxn[i];
+    for (int j = 0; j < M; ++j) acc += w->g.Kx[i * M + j] * w->dxn[j];
+    w->dxo[i] = w->g.Kh[i] + acc - w->dxn[i];
   }
   __syncthreads();
 
@@ -260,13 +167,13 @@ FL_DEV void fl_iter_body(FlIterWS* w, float inv_R, float D) {
     float gm = INFINITY;
     for (int i = 0; i < 6; ++i) {
       float r = 0.0f;
-      for (int j = 0; j < 6; ++j) r += fabsf(w->HTH[i * M + j]);
-      float di = w->HTH[i * M + i];
+      for (int j = 0; j < 6; ++j) r += fabsf(w->g.HTH[i * M + j]);
+      float di = w->g.HTH[i * M + i];
       gm = fminf(gm, di - (r - fabsf(di)));
     }
     w->gersh = gm;
     float head[6];
-    w->min_eig = fl_guard_head(w->HTH, w->dxo, D, head);
+    w->min_eig = fl_guard_head(w->g.HTH, w->dxo, D, head);
     const float* d = w->dxo;
     const float* x = w->x;
     float q[4];
@@ -284,7 +191,7 @@ FL_DEV void fl_iter_body(FlIterWS* w, float inv_R, float D) {
   // ---- Joseph form: M0 = A·P_it·Aᵀ + R·K·Kᵀ, A = I − [K_x | 0] ----
   for (int o = tid; o < NS * NS; o += nt) {
     int i = o / NS, j = o % NS;
-    w->J[o] = (i == j ? 1.0f : 0.0f) - (j < M ? w->Kx[i * M + j] : 0.0f);
+    w->J[o] = (i == j ? 1.0f : 0.0f) - (j < M ? w->g.Kx[i * M + j] : 0.0f);
   }
   __syncthreads();
   fl_blk_mm(w->T, w->J, NS, false, w->Pit, NS, false, NS, NS, NS);
@@ -293,7 +200,7 @@ FL_DEV void fl_iter_body(FlIterWS* w, float inv_R, float D) {
   for (int o = tid; o < NS * NS; o += nt) {
     int i = o / NS, j = o % NS;
     float kk = 0.0f;
-    for (int m = 0; m < M; ++m) kk += w->K[i * M + m] * w->K[j * M + m];
+    for (int m = 0; m < M; ++m) kk += w->g.K[i * M + m] * w->g.K[j * M + m];
     w->M0[o] = w->M0[o] + Rv * kk;
   }
   __syncthreads();

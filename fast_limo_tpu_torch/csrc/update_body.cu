@@ -24,8 +24,8 @@ fl_update_body_kernel(const float* __restrict__ HTH, const float* __restrict__ H
   __shared__ FlIterWS w;
   const int tid = threadIdx.x;
   for (int i = tid; i < FL_NS * FL_NS; i += blockDim.x) w.P[i] = P[i];
-  for (int i = tid; i < FL_M * FL_M; i += blockDim.x) w.HTH[i] = HTH[i];
-  for (int i = tid; i < FL_M; i += blockDim.x) w.HTh[i] = HTh[i];
+  for (int i = tid; i < FL_M * FL_M; i += blockDim.x) w.g.HTH[i] = HTH[i];
+  for (int i = tid; i < FL_M; i += blockDim.x) w.g.HTh[i] = HTh[i];
   for (int i = tid; i < FL_XF; i += blockDim.x) { w.x[i] = x[i]; w.xp[i] = x_prop[i]; }
   __syncthreads();
   if (tid == 0) fl_state_boxminus(w.x, w.xp, w.dx);

@@ -258,10 +258,10 @@ fl_update_loop_kernel(const float* __restrict__ X, int Np, const float* __restri
           if (e < 78) {
             int a, b;
             fl_tri_pair(e, &a, &b);
-            w->HTH[a * FL_M + b] = v;
-            w->HTH[b * FL_M + a] = v;
+            w->g.HTH[a * FL_M + b] = v;
+            w->g.HTH[b * FL_M + a] = v;
           } else {
-            w->HTh[e - 78] = v;
+            w->g.HTh[e - 78] = v;
           }
         }
         __syncthreads();

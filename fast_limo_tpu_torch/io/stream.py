@@ -36,8 +36,8 @@ class AsyncIngest:
 
     ``engine`` needs ``update_imu(stamp, acc, gyro)`` and
     ``update_pointcloud(points, t_raw, stamp)`` — the port's `Localizer`
-    qualifies; GPS records reach only an engine with ``update_gps`` (the
-    SLAM layer, not ported yet).  Call ``push_*`` from any single producer
+    and `SLAM` qualify; GPS records reach only an engine with
+    ``update_gps`` (`SLAM`).  Call ``push_*`` from any single producer
     thread (one producer per stream, like one ROS callback queue per topic);
     ``close()`` drains everything and joins the dispatch thread.  The IMU
     ring is the native library's (``io/native``, built with g++); a record

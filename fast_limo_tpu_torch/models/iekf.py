@@ -12,6 +12,15 @@ convergence is tested on the pre-guard update.
 model exposes a window pack, reads its ``ok`` flag on the host (one sync
 per scan) and, when a staleness certificate failed, re-runs the exact
 per-iteration loop through the K4 statistics and K5 body kernels.
+
+``split_body=True`` is the JAX package's program with its fused body off
+(there an environment lever, here an argument): every scan runs the
+per-iteration loop with ``_body_jnp`` as its body — chart projection in
+plain torch, the gain through ``gain.gain`` (K8 on CUDA tensors), then the
+eigh guard, boxplus and Joseph covariance in plain torch — and neither K5
+nor K6 launches.  It is an independent per-scan witness of the fused
+kernels; its guard costs one host read per evaluation and a 6×6
+``torch.linalg.eigh`` where the Gershgorin bound does not certify.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ class SyncCounter:
     def __init__(self):
         self.host_syncs = 0
         self.loop_fallbacks = 0
+        self.guard_eighs = 0      # split body: 6×6 eigh calls of the guard
 
     def read(self, t) -> float:
         self.host_syncs += 1
@@ -148,14 +158,20 @@ def _chart_project_P(dx, x: st.NavState, x_prop: st.NavState, P, dx_new):
     return dx_new, P
 
 
+def _gersh_min(HTH):
+    """Minimum Gershgorin lower bound on the eigenvalues of HᵀH[:6, :6]."""
+    H6 = HTH[0:6, 0:6]
+    hd = torch.diagonal(H6)
+    return torch.min(hd - (torch.sum(torch.abs(H6), dim=1) - torch.abs(hd)))
+
+
 def _degeneracy_guard(HTH, dx_, D):
     """Zero degenerate pose-update directions (esekfom.hpp:1736-1744 intent,
     spectral projector).  Returns (guarded dx (23,), min_eig ())."""
     H6 = HTH[0:6, 0:6]
-    diag = torch.diagonal(H6)
-    gersh_min = torch.min(diag - (torch.sum(torch.abs(H6), dim=1) - torch.abs(diag)))
-    if bool(gersh_min >= D):
+    if counters.read(_gersh_min(HTH)) >= D:
         return dx_, torch.tensor(float("inf"), dtype=dx_.dtype, device=dx_.device)
+    counters.guard_eighs += 1
     w, V = torch.linalg.eigh(H6)
     m = (w >= D).to(dx_.dtype)
     dx6 = dx_[0:6]
@@ -183,14 +199,15 @@ def _final_P(x: st.NavState, x_prop: st.NavState, dx_, P, K_x, K, R):
 
 
 def _body_jnp(x: st.NavState, x_prop: st.NavState, P_prop, HTH, HTh, R, D):
-    """One update-iteration body with the reference-style gain
-    (``gain.gain_reference``) and the eigh guard — the counterpart of the
-    JAX package's ``_body_jnp``.  Returns (x_next, P_fin, dx_, min_eig)."""
+    """One update-iteration body in plain torch around the gain
+    (``gain.gain``: K8 on CUDA tensors, its plain version on CPU tensors),
+    with the eigh guard — the counterpart of the JAX package's
+    ``_body_jnp``.  Returns (x_next, P_fin, dx_, min_eig)."""
     from fast_limo_tpu_torch.ops import gain as gain_op
 
     dx = st.boxminus(x, x_prop)
     dx_new, P_it = _chart_project_P(dx, x, x_prop, P_prop, dx)
-    K_x12, K_h, K = gain_op.gain_reference(HTH, HTh, P_it, R)
+    K_x12, K_h, K = gain_op.gain(HTH, HTh, P_it, R)
     K_x = torch.zeros((N, N), dtype=P_prop.dtype, device=P_prop.device)
     K_x[:, 0:M_OBS] = K_x12
     dx_ = K_h + (K_x - torch.eye(N, dtype=K_x.dtype, device=K_x.device)) @ dx_new
@@ -203,28 +220,41 @@ def _body_jnp(x: st.NavState, x_prop: st.NavState, P_prop, HTH, HTh, R, D):
 # ----------------------------------------------------------------- update
 
 def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
-                    max_iters: int, limit: float):
+                    max_iters: int, limit: float, split_body: bool = False,
+                    with_diag: bool = False):
     """Iterated dynamic-share update (esekfom.hpp:1620-1823).
 
     ``h_model.stats(x) -> (HᵀH, Hᵀh)`` re-matches at the iterate.  With a
     window pack (``h_model.loop_pack``) the whole loop is ONE K6 launch;
     its ``ok`` is read on the host and, when False, the exact per-
     iteration loop re-runs (K4 statistics + K5 body per iteration; the
-    re-match itself re-gathers the stale queries).  Returns (x', P',
-    n_iters).
+    re-match itself re-gathers the stale queries).  With ``split_body``
+    the per-iteration loop runs for every scan with ``_body_jnp`` (K8) as
+    its body and K5/K6 never launch.  Returns (x', P', n_iters); with
+    ``with_diag`` additionally ``{"gersh_min", "min_eig", "guard_fired",
+    "loop_fallback"}``: the minimum Gershgorin bound on HᵀH's pose block
+    and its exact minimum eigenvalue over the iterations (+inf where the
+    split body's bound certified it ≥ D), whether the degeneracy guard
+    zeroed directions, and whether K6's certificates failed.
     """
     from fast_limo_tpu_torch.ops import update_body, update_loop
 
+    def diag(g, me, fb):
+        return {"gersh_min": g, "min_eig": me, "guard_fired": me < D,
+                "loop_fallback": torch.as_tensor(fb, device=P.device)}
+
     x_prop, P_prop = x, P
-    loop_pack = getattr(h_model, "loop_pack", None)
+    loop_pack = None if split_body else getattr(h_model, "loop_pack", None)
+    fell_back = False
     if loop_pack is not None:
-        xk, Pk, nit_k, ok, _g, _me = update_loop.update_loop(
+        xk, Pk, nit_k, ok, g_k, me_k = update_loop.update_loop(
             loop_pack, P_prop, x_prop, R, D, limit, max_iters=max_iters,
             estimate_extrinsics=h_model.estimate_extrinsics,
             window=h_model.loop_window)
         if counters.read(ok):
-            return xk, Pk, nit_k
+            return (xk, Pk, nit_k, diag(g_k, me_k, False)) if with_diag else (xk, Pk, nit_k)
         counters.loop_fallbacks += 1
+        fell_back = True
 
     # exact per-iteration loop: i = −1 … max_iters−1 (max_iters+1 bodies),
     # finished iterations are masked exactly like the JAX unrolled loop
@@ -233,10 +263,16 @@ def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
     t = torch.zeros((), dtype=torch.int32, device=dev)
     i = torch.full((), -1, dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
+    inf = torch.full((), float("inf"), dtype=P.dtype, device=dev)
+    g_min, me_min = inf, inf
     for _ in range(max_iters + 1):
         HTH, HTh = h_model.stats(xc)
-        x_next, P_fin, dx_, _gm, _me = update_body.update_body(
-            HTH, HTh, P_prop, xc, x_prop, R, D)
+        if split_body:
+            x_next, P_fin, dx_, me = _body_jnp(xc, x_prop, P_prop, HTH, HTh, R, D)
+            gm = _gersh_min(HTH) if with_diag else None
+        else:
+            x_next, P_fin, dx_, gm, me = update_body.update_body(
+                HTH, HTh, P_prop, xc, x_prop, R, D)
         t_next = t + torch.all(torch.abs(dx_) <= limit).to(torch.int32)
         done_now = (t_next > 1) | (i == max_iters - 1)
         keep = done
@@ -244,5 +280,10 @@ def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
         Pc = torch.where(keep | ~done_now, Pc, P_fin)
         t = torch.where(keep, t, t_next)
         i = torch.where(keep, i, i + 1)
+        if with_diag:
+            g_min = torch.where(keep, g_min, torch.minimum(g_min, gm))
+            me_min = torch.where(keep, me_min, torch.minimum(me_min, me))
         done = done | done_now
+    if with_diag:
+        return xc, Pc, i + 1, diag(g_min, me_min, fell_back)
     return xc, Pc, i + 1

@@ -70,13 +70,16 @@ class _PendingScan:
 
 
 class Localizer:
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", split_body: bool = False):
+        """``split_body``: run every scan's update as the per-iteration loop
+        around the gain kernel K8 (``iekf.update_iterated``) instead of the
+        fused kernels K6/K5 — the witness configuration."""
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
         self.telemetry = Telemetry()
         self.chunk = max(1, int(cfg.tpu.scan_chunk))
         build = pl.build_scan_chunk_step if self.chunk > 1 else pl.build_scan_step_split
-        self.scan_step = build(cfg, self.device)
+        self.scan_step = build(cfg, self.device, split_body)
         # Capture hook: called as on_dispatch(scan_pack (N,4), imu_pack (K,8))
         # with the exact host bytes copied for every scan, in dispatch
         # order, on both paths.  Consumers copy what they keep.

@@ -148,20 +148,24 @@ class HModel:
         good_m[idx] = torch.where(sel_ok, good_s, good_w[idx])
         return self._finish(n_m, good_m, glob)
 
-    def rematch(self, glob):
-        """Per-iteration exact re-match: window fast path, stale patch, or a
-        full re-gather when the stale count exceeds the budget."""
+    def _rematch_counted(self, glob):
+        """``rematch`` plus the stale count (a host int) that chose its branch."""
         ranked = self._window_rank(glob)
         stale = self._stale_mask(glob, ranked[1])
         viol = int(iekf.counters.read(torch.sum(stale.to(torch.int32))))
         if viol == 0:
             self.last_branch = "window"
-            return self._finish(*self._window_fit(ranked), glob)
+            return (*self._finish(*self._window_fit(ranked), glob), viol)
         if viol <= self.budget:
             self.last_branch = "patched"
-            return self._patched_match(glob, ranked, stale)
+            return (*self._patched_match(glob, ranked, stale), viol)
         self.last_branch = "full"
-        return self._match(glob)
+        return (*self._match(glob), viol)
+
+    def rematch(self, glob):
+        """Per-iteration exact re-match: window fast path, stale patch, or a
+        full re-gather when the stale count exceeds the budget."""
+        return self._rematch_counted(glob)[:2]
 
     # -------------------------------------------------------------- API
     def stats(self, x: st.NavState):
@@ -171,6 +175,16 @@ class HModel:
         X = hstats_op.pack_inputs(self.pc, n_abcd, keep)
         return hstats_op.hstats(X, hstats_op.pack_scalars(x),
                                 estimate_extrinsics=self.estimate_extrinsics)
+
+    def debug(self, x: st.NavState):
+        """Match telemetry at the iterate x (the JAX ``h_debug``): the
+        re-matched planes ``n_abcd (Q,4)``, the final gate mask ``keep
+        (Q,)``, the signed point-to-plane distances ``(Q,)`` and the number
+        of queries whose window certificates fail there ``() int32``."""
+        glob = so3.quat_rotate(x.rot, self.pc) + x.pos
+        n_abcd, keep, viol = self._rematch_counted(glob)
+        dist = plane_op.point_to_plane(n_abcd, glob)
+        return n_abcd, keep, dist, torch.tensor(viol, dtype=torch.int32, device=glob.device)
 
 
 def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, **kw) -> HModel:

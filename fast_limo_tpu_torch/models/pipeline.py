@@ -60,6 +60,24 @@ class ScanBatch(NamedTuple):
     imu_valid: torch.Tensor  # (K,) bool
 
 
+class DebugOutput(NamedTuple):
+    """``cfg.debug``-gated intermediates (the JAX package's, field for
+    field; reference debug publishers src/main.cpp:198-203)."""
+
+    orig_points: torch.Tensor      # (N,3) filtered scan, sensor frame, pre-deskew
+    orig_valid: torch.Tensor       # (N,)
+    deskewed: torch.Tensor         # (N,3) deskewed full-res cloud, Xt2 frame
+    deskewed_valid: torch.Tensor   # (N,)
+    match_planes: torch.Tensor     # (Q,4) fitted plane [n, d] per pc2match point
+    match_keep: torch.Tensor       # (Q,) final gate mask (these formed H)
+    match_dist: torch.Tensor       # (Q,) signed point-to-plane distance at x⁺
+    gersh_min: torch.Tensor        # () min Gershgorin bound on eig(HᵀH[:6,:6])
+    min_eig: torch.Tensor          # () exact min eig of HᵀH[:6,:6] over iterations
+    guard_fired: torch.Tensor      # () bool: the degeneracy guard zeroed directions
+    n_stale: torch.Tensor          # () int32: window certificates failing at x⁺
+    loop_fallback: torch.Tensor    # () bool: K6's certificates failed this scan
+
+
 class ScanOutput(NamedTuple):
     pos: torch.Tensor
     quat: torch.Tensor
@@ -71,6 +89,7 @@ class ScanOutput(NamedTuple):
     n_deskewed: torch.Tensor
     n_pc2match: torch.Tensor
     scan_stamp: torch.Tensor
+    debug: object = None           # DebugOutput when cfg.debug, else None
 
 
 def _take(arr, i):
@@ -105,8 +124,12 @@ def init_state(cfg: Config, device="cuda") -> LIOState:
         pinned_grav=x.grav.clone())
 
 
-def build_scan_step(cfg: Config, device="cuda"):
-    """The per-scan step for a static config, on ``device``."""
+def build_scan_step(cfg: Config, device="cuda", split_body: bool = False):
+    """The per-scan step for a static config, on ``device``.  With
+    ``split_body`` the update runs the per-iteration loop around the gain
+    kernel K8 every scan (``iekf.update_iterated``) instead of K6/K5.  With
+    ``cfg.debug`` the output carries a ``DebugOutput`` (one more re-match
+    at the posterior and its host read); without it nothing of that runs."""
     device = dispatch.resolve_device(device)
     mp_cfg = cfg.ikfom.mapping
     voxel_size = cfg.map_voxel_size
@@ -176,10 +199,11 @@ def build_scan_step(cfg: Config, device="cuda"):
             max_num_matches=mp_cfg.MAX_NUM_MATCHES,
             estimate_extrinsics=cfg.ikfom.estimate_extrinsics, x0=x_t2,
             dynamic_gate=mp_cfg.DYNAMIC_GATE)
-        x_u, P_u, n_iters = iekf.update_iterated(
+        upd = iekf.update_iterated(
             x_t2, P_t2, h_model, R=cfg.ikfom.lidar_noise,
             D=cfg.ikfom.degeneracy_thresh, max_iters=cfg.ikfom.MAX_NUM_ITERS,
-            limit=cfg.ikfom.LIMITS)
+            limit=cfg.ikfom.LIMITS, split_body=split_body, with_diag=cfg.debug)
+        x_u, P_u, n_iters = upd[:3]
 
         # NULL ITERATION (Localizer.cpp:323,379-380): a select, not a branch
         do_update = torch.sum(pc2_valid) > 1
@@ -215,6 +239,16 @@ def build_scan_step(cfg: Config, device="cuda"):
             final_scan=w_scan, final_valid=ins_valid & do_update,
             scan_body=ins_pts, n_iters=n_iters, n_deskewed=torch.sum(pvalid),
             n_pc2match=torch.sum(pc2_valid), scan_stamp=scan_end)
+        if cfg.debug:
+            udiag = upd[3]
+            n_abcd, keep, dist, n_stale = h_model.debug(x_u)
+            out = out._replace(debug=DebugOutput(
+                orig_points=pts, orig_valid=pvalid,
+                deskewed=p_xt2, deskewed_valid=pvalid,
+                match_planes=n_abcd, match_keep=keep & do_update, match_dist=dist,
+                gersh_min=udiag["gersh_min"], min_eig=udiag["min_eig"],
+                guard_fired=udiag["guard_fired"] & do_update, n_stale=n_stale,
+                loop_fallback=udiag["loop_fallback"] & do_update))
         return s_next, out
 
     return scan_step
@@ -266,7 +300,7 @@ def _pack_reader(cfg: Config, device, min_k: int):
     return read
 
 
-def build_scan_step_packed(cfg: Config, device="cuda"):
+def build_scan_step_packed(cfg: Config, device="cuda", split_body: bool = False):
     """The step on ONE flat buffer (``fuse_packs``) of two sections:
 
     * ``scan_pack`` (N,4) — ``[x, y, z, t_raw]`` rows, zero-padded; float32,
@@ -280,7 +314,7 @@ def build_scan_step_packed(cfg: Config, device="cuda"):
 
     Same results as ``build_scan_step`` on the unpacked batch."""
     device = dispatch.resolve_device(device)
-    inner = build_scan_step(cfg, device)
+    inner = build_scan_step(cfg, device, split_body)
     read = _pack_reader(cfg, device, 4)
     n_scan = cfg.tpu.max_points_per_scan * 4
     quantized = float(cfg.tpu.quantize_transfer) > 0
@@ -294,14 +328,14 @@ def build_scan_step_packed(cfg: Config, device="cuda"):
     return packed_step
 
 
-def build_scan_step_split(cfg: Config, device="cuda"):
+def build_scan_step_split(cfg: Config, device="cuda", split_body: bool = False):
     """The streaming step on TWO buffers: the scan payload (N,4) and the
     IMU pack (K,8) of ``build_scan_step_packed``.  The payload does not
     depend on IMU coverage, so the Localizer starts its copy to the device
     when the scan arrives, overlapping the scan in flight; only the small
     IMU pack waits for dispatch.  Same results as the packed step."""
     device = dispatch.resolve_device(device)
-    inner = build_scan_step(cfg, device)
+    inner = build_scan_step(cfg, device, split_body)
     read = _pack_reader(cfg, device, 4)
 
     def split_step(s: LIOState, scan_pack, imu_pack):
@@ -317,7 +351,16 @@ def _select(cond, a, b):
     return torch.where(cond, a, b)
 
 
-def build_scan_chunk_step(cfg: Config, device="cuda"):
+def _stack(outs):
+    """Matching (nested) NamedTuples stacked leaf by leaf on a leading axis."""
+    if outs[0] is None:
+        return None
+    if isinstance(outs[0], tuple):
+        return type(outs[0])(*(_stack(f) for f in zip(*outs)))
+    return torch.stack(outs)
+
+
+def build_scan_chunk_step(cfg: Config, device="cuda", split_body: bool = False):
     """Chunked replay: C scans per call, ``scan_packs (C,N,4)`` and
     ``imu_packs (C,K,8)`` in the packed layout with ``aux[4] = active``.
     The elements run in order through the per-scan step; an inactive
@@ -326,7 +369,7 @@ def build_scan_chunk_step(cfg: Config, device="cuda"):
     ``(LIOState', ScanOutput)`` with every output stacked on a leading
     chunk axis, ``n_pc2match = 0`` and ``final_valid`` False on padding."""
     device = dispatch.resolve_device(device)
-    inner = build_scan_step(cfg, device)
+    inner = build_scan_step(cfg, device, split_body)
     read = _pack_reader(cfg, device, 5)
 
     def chunk_step(s: LIOState, scan_packs, imu_packs):
@@ -338,7 +381,7 @@ def build_scan_chunk_step(cfg: Config, device="cuda"):
             outs.append(out._replace(
                 n_pc2match=torch.where(active, out.n_pc2match, torch.zeros_like(out.n_pc2match)),
                 final_valid=out.final_valid & active))
-        return s, ScanOutput(*(torch.stack(f) for f in zip(*outs)))
+        return s, _stack(outs)
 
     return chunk_step
 

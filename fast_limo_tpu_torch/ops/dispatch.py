@@ -43,6 +43,7 @@ _SIGNATURES = {
     "fl_fit_planes": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P],
     "fl_hstats_rows": [_I],
     "fl_hstats": [_P, _I, _P, _I, _P, _P, _P, _P],
+    "fl_gain": [_P, _P, _P, _P, _P, _P, _P, _P],
     "fl_update_body": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "fl_update_loop_scratch": [_I],
     "fl_update_loop": [_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _I, _F, _I,

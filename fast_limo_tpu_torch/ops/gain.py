@@ -10,15 +10,18 @@ P and the scalar noise R (reference esekfom.hpp:1701-1709):
                                  makes S slightly indefinite)
     K_x  = K·H̃ ; K_h = K·h̃
 
-``gain_reference`` solves with ``torch.linalg.solve``; ``gain_math`` is the
-exact algebra the Hopper iteration-body kernel runs (csrc/iter_body.cuh),
-written as plain torch.  The standalone TPU gain kernel (ops/gain.py
-``gain_tpu``) is off the slice's path and not ported yet.
+``gain`` launches K8 (``csrc/gain.cu``) on CUDA tensors; on CPU tensors it
+runs ``gain_math``, its plain version: the exact algebra of the device
+function ``csrc/gain.cuh``, which K8 launches standalone and the
+iteration-body kernels K5/K6 run inside their body.  ``gain_reference``
+solves with ``torch.linalg.solve`` (the second oracle).
 """
 
 from __future__ import annotations
 
 import torch
+
+from fast_limo_tpu_torch.ops import dispatch
 
 M = 12   # observed dims
 NS = 23  # error-state dims
@@ -91,3 +94,35 @@ def gain_math(A, u, Pm, inv_R):
 
     K = Aug[:, M:].T * inv_R                               # (NS, M)
     return K @ Ht, torch.sum(K * h[None, :], dim=1), K
+
+
+def _launch(HTH, HTh, P, R):
+    dev = P.device
+    dispatch.require(HTH, "HTH", shape=(M, M))
+    dispatch.require(HTh, "HTh", shape=(M,))
+    dispatch.require(P, "P", shape=(NS, NS))
+    sc = torch.tensor([1.0 / R], dtype=torch.float32, device=dev)
+    K_x = torch.empty((NS, M), dtype=torch.float32, device=dev)
+    K_h = torch.empty(NS, dtype=torch.float32, device=dev)
+    K = torch.empty((NS, M), dtype=torch.float32, device=dev)
+    err = dispatch.library().fl_gain(
+        dispatch.ptr(HTH), dispatch.ptr(HTh), dispatch.ptr(P), dispatch.ptr(sc),
+        dispatch.ptr(K_x), dispatch.ptr(K_h), dispatch.ptr(K), dispatch.stream())
+    dispatch.check(err, "gain")
+    gain.launches += 1
+    return K_x, K_h, K
+
+
+def gain(HTH, HTh, P, R):
+    """K8: ``(K_x (23,12), K_h (23,), K (23,12))`` from HᵀH (12,12), Hᵀh
+    (12,), the chart-projected covariance P (23,23; columns 0:12 are read)
+    and the scalar noise R.  A CUDA tensor goes through the kernel (float32,
+    contiguous, exact shapes: anything else raises), a CPU tensor through
+    ``gain_math``."""
+    if not dispatch.on_cuda(P):
+        inv_R = torch.tensor(1.0 / R, dtype=P.dtype)
+        return gain_math(HTH, HTh, P[:, 0:M], inv_R)
+    return _launch(HTH, HTh, P, R)
+
+
+gain.launches = 0

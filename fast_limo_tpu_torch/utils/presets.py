@@ -8,7 +8,10 @@ imports JAX.  The bench's chunked replay sets ``tpu.scan_chunk = 4`` on
 top of it (``bench.py:397-398``).
 
 ``bench_sequence`` is the bench's "benign" synthetic corridor
-(``bench.make_seq``).
+(``bench.make_seq``); ``soak_sequence``/``soak_loop_cfg`` are the closed
+circuit and loop-closure settings of its long-run soak
+(``bench.py:227-274``), ``corridor_gps_loop_cfg`` the settings of its GPS
+corridor (``bench.py:190-224``).
 """
 
 from __future__ import annotations
@@ -59,8 +62,32 @@ def bench_sequence(seed: int = 7, n_scans: int = 24, points_per_scan: int = 3276
         traj=synthetic.Trajectory(v_forward=15.0, yaw_amp=0.5))
 
 
+def soak_sequence(n_scans: int = 192, seed: int = 11):
+    """The soak's closed circuit: a 9 m-radius loop at 4 m/s, 16384-point
+    scans at 5 Hz, 25 m range (~2.7 laps in 192 scans)."""
+    return synthetic.SyntheticSequence(
+        seed=seed, n_scans=n_scans, points_per_scan=16384, scan_rate=5.0,
+        noise_pt=0.01, noise_gyro=8e-4, noise_acc=8e-3, max_range=25.0,
+        traj=synthetic.LoopTrajectory(v_forward=4.0, radius=9.0, ramp_tau=0.8),
+        world=synthetic.build_loop_world(seed, radius=9.0))
+
+
+def soak_loop_cfg():
+    from fast_limo_tpu_torch.models.slam import LoopConfig
+
+    return LoopConfig(kf_dist=2.0, exclude_recent=20, sc_dist_thresh=0.28,
+                      icp_min_inliers=150, loop_weight=30.0, max_keyframes=64,
+                      loop_cooldown=3.0)
+
+
+def corridor_gps_loop_cfg():
+    from fast_limo_tpu_torch.models.slam import LoopConfig
+
+    return LoopConfig(gps_weight=20.0, gps_optimize_every=5)
+
+
 def replay(loc, seq) -> None:
-    """Feed a synthetic sequence through a Localizer in arrival order."""
+    """Feed a synthetic sequence through a Localizer or SLAM in arrival order."""
     stamps, acc, gyro = seq.imu_stream()
     scans = [seq.scan(i) for i in range(seq.n_scans)]
     si = 0

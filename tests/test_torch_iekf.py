@@ -82,8 +82,9 @@ def test_predict_scan_matches_jax_and_oracle(rng):
 
 
 def test_body_jnp_matches_jax(rng):
-    """One update body with the reference-style gain: same algebra, float32
-    rounding only (rtol 1e-4, atol 1e-5; P atol 1e-4)."""
+    """One update body (on CPU tensors its gain is K8's plain version, the
+    JAX side's the library solve): same algebra, float32 rounding only
+    (rtol 1e-4, atol 1e-5; P atol 1e-4)."""
     xp = _state_np(rng)
     dx = rng.normal(size=23) * 1e-3
     x = oracle.state_boxplus(xp, dx)

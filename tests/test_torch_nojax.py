@@ -3,8 +3,11 @@ interpreter imports the port, runs two tiny CPU scan steps through the
 Localizer at the bench's int16 transfer (the native packer), the same
 scans chunked (C = 2, flushed) and through AsyncIngest, renders the
 board, queries the map (K7's plain version), sorts with K9's plain
-version, writes and reads a checkpoint, and JAX is still absent from
-sys.modules."""
+version, writes and reads a checkpoint, runs the SLAM engine with GPS
+priors, a pose-graph optimisation, a session round trip, the gain through
+its wrapper and the CLI, and JAX is still absent from sys.modules.
+``chip_smoke.py`` imports none of it either, and without a card it exits 2
+and prints no result."""
 
 import os
 import pathlib
@@ -59,6 +62,31 @@ loc.save_checkpoint(path)
 again = Localizer(cfg, device="cpu")
 again.load_checkpoint(path)
 assert torch.equal(again.state.map.table, loc.state.map.table)
+from fast_limo_tpu_torch import cli
+from fast_limo_tpu_torch.models import icp, posegraph, relocalize, scancontext, slam
+from fast_limo_tpu_torch.ops import gain, geometry, se3
+from fast_limo_tpu_torch.utils import evaluation, interop
+
+cfg.tpu.scan_chunk = 1
+cfg.debug = True
+eng = slam.SLAM(cfg, slam.LoopConfig(kf_dist=0.2, gps_optimize_every=1), device="cpu")
+for stamp in seq.imu_stream()[0]:            # buffered until keyframes bracket them
+    eng.update_gps(stamp, seq.traj.pos(np.asarray([stamp]))[0])
+presets.replay(eng, seq)
+eng.flush()
+assert len(eng.keyframes) == 2 and eng.gps_factors and eng.loc.last_output.debug is not None
+prefix = os.path.join(tempfile.mkdtemp(), "session")
+eng.save_session(prefix)
+fresh = slam.SLAM(cfg, device="cpu")
+fresh.load_session(prefix)
+assert len(fresh.keyframes) == 2
+g = posegraph.from_arrays([[1, 0, 0, 0]] * 3, [[0, 0, 0], [1, 0, 0], [2.2, 0, 0]], [0, 1], [1, 2],
+                          [[1, 0, 0, 0]] * 2, [[1, 0, 0]] * 2, [1.0, 1.0], device="cpu")
+g2, costs = posegraph.optimize(g, iters=3)
+assert float(costs[-1]) < 1e-6 and abs(float(g2.trans[2, 0]) - 2.0) < 1e-3
+K = gain.gain(torch.eye(12), torch.ones(12), torch.eye(23), 1e-3)
+assert K[0].shape == (23, 12) and gain.gain.launches == 0
+assert cli.main(["--device", "cpu", "--no-loop", "synthetic", "--scans", "2"]) is None
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "fast_limo_tpu" or m.startswith("fast_limo_tpu."))
@@ -81,3 +109,13 @@ def test_no_jax_imports_in_sources():
     srcs = list((REPO / "fast_limo_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     hits = [str(p) for p in srcs if pat.search(p.read_text())]
     assert not hits, hits
+
+
+def test_chip_smoke_needs_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        return
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=str(REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 2 and '"ok"' not in res.stdout and "kernels" not in res.stdout

@@ -17,7 +17,13 @@ whole-loop kernel's plain version: the same exact re-match semantics, a
 different float32 gain algebra — LU against pivoted Gauss-Jordan) and
 5e-4 on P; the first update, from a one-scan map under the initial unit
 pose covariance, is ill-conditioned in float32 and its P is held to 2 % of
-max|P|.  The 5-scan replays agree per scan within 1e-3 m, and both stay
+max|P|.  With ``cfg.debug`` the port's ``DebugOutput`` is held field by field
+to the JAX step's from the same state (clouds 1e-5, planes and distances
+2e-3 where both keep the match, ``match_keep`` on ≥ 99 % of the queries,
+``n_stale``, ``guard_fired`` and ``loop_fallback`` exact), and with it off
+neither a launch, a host read nor a field is added.  The split-body replay
+(``Localizer(split_body=True)``, the JAX package's CPU program) agrees with
+the JAX replay per scan within 1e-3 m.  The 5-scan replays agree per scan within 1e-3 m, and both stay
 """
 
 import dataclasses
@@ -34,6 +40,7 @@ from fast_limo_tpu.models import state as jst
 from fast_limo_tpu.models.localizer import Localizer as JLocalizer
 from fast_limo_tpu.utils.config import Config as JConfig
 from fast_limo_tpu_torch.io import synthetic
+from fast_limo_tpu_torch.models import iekf
 from fast_limo_tpu_torch.models import pipeline as pl
 from fast_limo_tpu_torch.models import state as st
 from fast_limo_tpu_torch.models.localizer import Localizer
@@ -186,3 +193,130 @@ def test_prop_step_matches_jax(replays, n):
                                np.asarray(jst.as_vector(want[0])), rtol=1e-4, atol=1e-5)
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
+def _batch(scan_pack, imu_pack):
+    N, K = scan_pack.shape[0], imu_pack.shape[0]
+    return pl.ScanBatch(
+        points=torch.tensor(scan_pack[:, :3]), t_raw=torch.tensor(scan_pack[:, 3]),
+        valid=torch.arange(N) < int(imu_pack[0, 7]), stamp=torch.zeros(()),
+        epoch_shift=torch.tensor(imu_pack[2, 7]), imu_acc=torch.tensor(imu_pack[:, 0:3]),
+        imu_gyro=torch.tensor(imu_pack[:, 3:6]), imu_stamp=torch.tensor(imu_pack[:, 6]),
+        imu_valid=torch.arange(K) < int(imu_pack[1, 7]))
+
+
+def _jax_state(d, jcfg):
+    s = jpl.init_state(jcfg)
+    m = s.map._replace(**{k: jnp.asarray(d[f"map.{k}"]) for k in interop.MAP_FIELDS})
+    return s._replace(x=jst.from_vector(jnp.asarray(d["x"])), P=jnp.asarray(d["P"]), map=m,
+                      **{k: jnp.asarray(d[k]) for k in interop.CARRIES})
+
+
+@pytest.fixture(scope="module")
+def debug_steps():
+    jcfg, cfg = _cfg(JConfig), _cfg(Config)
+    jcfg.debug = cfg.debug = True
+    return jpl.build_scan_step_split(jcfg, donate=False), pl.build_scan_step(cfg, "cpu"), jcfg
+
+
+_FALLBACKS_SEEN = set()
+
+
+@pytest.mark.parametrize("i", range(N_SCANS))
+def test_debug_output_matches_jax(replays, debug_steps, i):
+    """Where a scan keeps every window certificate (here the first, on the
+    empty map) ``loop_fallback`` is False in both packages.  Where it fails some, the port's whole-loop
+    kernel (its plain version here) reports the fallback as the TPU program
+    would and ``iekf.counters`` counts it; the JAX package's CPU program
+    has no whole-loop kernel and says False by construction."""
+    jstep, step, jcfg = debug_steps
+    n_fb = iekf.counters.loop_fallbacks
+    s_np, scan_pack, imu_pack, _, _ = replays[3][i]
+    _, want = jstep(_jax_state(s_np, jcfg), jnp.asarray(scan_pack), jnp.asarray(imu_pack))
+    _, got = step(interop.lio_state_from_numpy(s_np, "cpu"), _batch(scan_pack, imu_pack))
+    g, w = got.debug, want.debug
+    assert type(g).__name__ == type(w).__name__ == "DebugOutput" and g._fields == w._fields
+    np.testing.assert_array_equal(g.orig_valid.numpy(), np.asarray(w.orig_valid))
+    np.testing.assert_array_equal(g.deskewed_valid.numpy(), np.asarray(w.deskewed_valid))
+    v = g.orig_valid.numpy()
+    np.testing.assert_allclose(g.orig_points.numpy()[v], np.asarray(w.orig_points)[v], atol=1e-6)
+    np.testing.assert_allclose(g.deskewed.numpy()[v], np.asarray(w.deskewed)[v], atol=1e-5)
+    kg, kw = g.match_keep.numpy(), np.asarray(w.match_keep)
+    assert kg.shape == kw.shape and (kg == kw).mean() >= 0.99 and (i < 3 or kg.sum() > 50)
+    both = kg & kw
+    np.testing.assert_allclose(g.match_planes.numpy()[both], np.asarray(w.match_planes)[both],
+                               atol=2e-3)
+    np.testing.assert_allclose(g.match_dist.numpy()[both], np.asarray(w.match_dist)[both],
+                               atol=2e-3)
+    assert g.n_stale.dtype == torch.int32 and int(g.n_stale) == int(w.n_stale)
+    assert bool(g.guard_fired) == bool(w.guard_fired)
+    fallback = iekf.counters.loop_fallbacks > n_fb
+    _FALLBACKS_SEEN.add(fallback)
+    assert bool(g.loop_fallback) is fallback and bool(w.loop_fallback) is False
+    assert fallback or int(g.n_stale) == 0
+    np.testing.assert_allclose(float(g.gersh_min), float(w.gersh_min), rtol=2e-3)
+    # the JAX CPU loop certifies min_eig ≥ D by the Gershgorin bound (+inf)
+    # where it can; the port's whole-loop kernel always computes it
+    assert float(g.min_eig) >= jcfg.ikfom.degeneracy_thresh or bool(g.guard_fired)
+
+
+def test_debug_loop_fallback_seen_both_ways():
+    """The scans above cover both outcomes of K6's certificates."""
+    assert _FALLBACKS_SEEN == {True, False}
+
+
+def test_debug_off_adds_nothing(replays):
+    """The rule of tests/test_debug.py: with cfg.debug off no DebugOutput,
+    no extra launch or host read, and the same state bit for bit."""
+    s_np, scan_pack, imu_pack, _, _ = replays[3][3]
+    cfg_on, cfg_off = _cfg(Config), _cfg(Config)
+    cfg_on.debug = True
+    calls = {}
+
+    def run(cfg):
+        from fast_limo_tpu_torch.models import measurement
+
+        n0, orig, made = iekf.counters.host_syncs, measurement.make_h_model, []
+        measurement.make_h_model = lambda *a, **kw: made.append(orig(*a, **kw)) or made[-1]
+        try:
+            out = pl.build_scan_step(cfg, "cpu")(interop.lio_state_from_numpy(s_np, "cpu"),
+                                                 _batch(scan_pack, imu_pack))
+        finally:
+            measurement.make_h_model = orig
+        calls[cfg.debug] = iekf.counters.host_syncs - n0
+        return out
+
+    (s_on, o_on), (s_off, o_off) = run(cfg_on), run(cfg_off)
+    assert o_off.debug is None and o_on.debug is not None
+    assert calls[True] == calls[False] + 1          # the posterior re-match's stale count
+    a, b = interop.lio_state_to_numpy(s_on), interop.lio_state_to_numpy(s_off)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_debug_rides_every_entry_point(replays, chunk):
+    """Localizer.last_output carries the DebugOutput through the split step
+    and, stacked on the chunk axis, through the chunk step."""
+    cfg = _cfg(Config)
+    cfg.debug, cfg.tpu.scan_chunk = True, chunk
+    loc = Localizer(cfg, device="cpu")
+    presets.replay(loc, presets.bench_sequence(seed=7, n_scans=2, points_per_scan=512))
+    loc.flush()
+    dbg = loc.last_output.debug
+    lead = () if chunk == 1 else (chunk,)
+    assert dbg.match_planes.shape == lead + (cfg.ikfom.mapping.MAX_NUM_PC2MATCH, 4)
+    assert dbg.n_stale.shape == lead and dbg.loop_fallback.dtype == torch.bool
+    assert np.isfinite(loc.positions()).all() and len(loc.trajectory) == 2
+
+
+def test_split_body_replay_matches_jax(replays):
+    seq, jl, _, _, _ = replays
+    n0 = iekf.counters.loop_fallbacks
+    tl = Localizer(_cfg(Config), device="cpu", split_body=True)
+    presets.replay(tl, seq)
+    assert iekf.counters.loop_fallbacks == n0       # K6's path is not taken at all
+    assert [t["n_iters"] for t in tl.trajectory] == [t["n_iters"] for t in jl.trajectory]
+    np.testing.assert_allclose(tl.positions(), jl.positions(), rtol=0, atol=1e-3)
+    ate = synthetic.ate_rmse(tl.positions(), seq.traj.pos(tl.stamps()))
+    assert ate < 0.15, ate

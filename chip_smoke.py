@@ -15,7 +15,10 @@ Phases (each prints its own lines):
               be < 0.15 m), per-scan wall ms p50/p95 after warm-up, the
               launch count of every kernel (K1, K2, K6 must be > 0; K9
               exactly twice a scan: the voxel and the insert sort), the
-              loop-fallback count and the host-sync count.
+              loop-fallback count and the host-sync count; one steady scan
+              runs under torch.cuda.set_sync_debug_mode("warn") and its
+              synchronizing calls are listed by source line (none may lie
+              in the K4/K5/K6/K8 wrappers).
 4. fallback — the exact per-iteration update loop (the path taken when the
               whole-loop kernel's certificates fail) on one captured scan at
               main-path shapes, plus its stale-patch and full re-match
@@ -30,12 +33,17 @@ Phases (each prints its own lines):
               plain version gain_math, rtol 1e-3 + 1e-3 of the largest
               entry, and against float64 truth within 12× the float32
               library solve's error + 2e-5 of the largest entry, the rule
-              of tests/test_gain.py):
+              of tests/test_gain.py; K4 and K6 must run ONE CUDA kernel a
+              call and give the same bits on two launches; the K4, K5, K6
+              and K8 wrappers must not synchronize the host, under
+              torch.cuda.set_sync_debug_mode("warn")):
               each launches once, agrees elementwise within the stated
-              tolerances, and both times are taken (CUDA events, median),
-              with the bound (bytes over HBM rate or operations over the
-              float32 rate, whichever is larger) and, where one PyTorch
-              call computes the same function, that call's time.
+              tolerances, and both times are taken (CUDA events through
+              the wrapper, median), with the kernel's own device time
+              (torch.profiler, matched by kernel name), the bound (bytes
+              over HBM rate or operations over the float32 rate,
+              whichever is larger) and, where one PyTorch call computes
+              the same function, that call's event and device times.
 6. map      — the long-session surface at the same configuration:
               (a) radius_search on the main replay's final map, 10 000
                   queries at four settings (K2 with V = 8, V = 27, k = 64;
@@ -92,9 +100,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -127,6 +137,55 @@ def _time_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _device_ms(fn, prefix=None, reps: int = 5):
+    """Device time of one fn() call from torch.profiler (CUPTI), over reps
+    runs after one warm-up: the CUDA kernels whose names start with
+    ``prefix``, or every device op of the call if None.  None if the
+    profiler records no device op."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    if not ev:
+        return None
+    mine = [e for e in ev if prefix is None or e.key.startswith(prefix)]
+    return sum(e.self_device_time_total for e in mine) / reps / 1e3
+
+
+def _sync_calls(fn):
+    """(fn(), the "file:line" of each synchronizing call it made), run under
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def _no_sync(name, fn):
+    """fn(), failing on any synchronizing call inside it."""
+    out, syncs = _sync_calls(fn)
+    if syncs:
+        _fail(f"{name} synchronized the host at {syncs}")
+    return out
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 WARMUP = 4          # scans before the steady per-scan times
@@ -223,6 +282,9 @@ def _profile(torch, Localizer, cfg, stamps, acc, gyro, scans, label: str) -> Non
         print(f"[smoke] profile {label}: {e.self_device_time_total / n / 1e3:8.4f} ms/scan "
               f"x{e.count / n:6.1f}  {e.key[:90]}")
     host = [e for e in stats if e.device_type.name == "CPU"]
+    n_sync = sum(e.count for e in host if e.key == "cudaStreamSynchronize")
+    print(f"[smoke] profile {label}: cudaStreamSynchronize {n_sync / n:.2f} calls a scan "
+          f"({n_sync} in {n} scans)")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"[smoke] profile {label} host: {e.self_cpu_time_total / n / 1e3:8.4f} ms/scan "
               f"x{e.count / n:7.1f}  {e.key[:80]}")
@@ -367,12 +429,15 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
         _fail(f"K2 (k = 64) neighbours differ where valid: {err:.3e}")
     d2_2 = knn_rows.candidate_d2(*a2, E=kw2["E"], B=kw2["B"])[0]
     ms = _time_ms(lambda: knn_rows.topk_from_rows(*a2, **kw2))
+    dms = _device_ms(lambda: knn_rows.topk_from_rows(*a2, **kw2), "fl_knn_rows")
     pms = _time_ms(lambda: knn_rows.topk_from_rows_reference(*a2, **kw2), reps=3)
     lms = _time_ms(lambda: torch.topk(d2_2, 64, dim=1, largest=False))
+    ldms = _device_ms(lambda: torch.topk(d2_2, 64, dim=1, largest=False))
     bms, by = _bound(*_k2_work(*a2, g, d2_2, kw2["E"]))
-    print(f"[smoke] kernel knn_rows (k=64): max_abs_err {err:.3e} | {ms:.4f} ms vs plain "
-          f"{pms:.4f} ms | bound {bms:.4f} ms ({by}) | one PyTorch call {lms:.4f} ms "
-          f"(N={a2[0].shape[0]}, V={a2[0].shape[1]}, k=64)", flush=True)
+    print(f"[smoke] kernel knn_rows (k=64): max_abs_err {err:.3e} | {ms:.4f} ms (device "
+          f"{_fmt(dms)}) vs plain {pms:.4f} ms | bound {bms:.4f} ms ({by}) | one PyTorch call "
+          f"{lms:.4f} ms (device {_fmt(ldms)}) (N={a2[0].shape[0]}, V={a2[0].shape[1]}, k=64)",
+          flush=True)
 
     # (c) eviction replay at the bench's soak settings
     seq_e = presets.bench_sequence(n_scans=40)
@@ -839,9 +904,15 @@ def main() -> None:
     if os.path.isfile(log_path):
         with open(log_path) as f:
             log = f.read()
+        name, props = "?", ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("[smoke] ptxas: " + line.strip().split("ptxas info    : ")[-1])
+            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+            if m:
+                name = m.group(2)[:int(m.group(1))]
+            elif "spill" in line:
+                props = line.strip()
+            elif "registers" in line:
+                print(f"[smoke] ptxas {name}: {line.split('Used ')[-1].strip()} | {props}")
 
     wrappers = {
         "deskew": (deskew_kernel.deskew, "fast_limo_tpu_torch/csrc/deskew.cu",
@@ -896,7 +967,10 @@ def main() -> None:
         cap["on"] = capturing
         torch.cuda.synchronize()
         t = time.perf_counter()
-        orig_dispatch(scan)
+        if capturing:   # the steady scan's synchronizing calls, by source line
+            cap["syncs"] = _sync_calls(lambda: orig_dispatch(scan))[1]
+        else:
+            orig_dispatch(scan)
         torch.cuda.synchronize()
         scan_ms.append(1e3 * (time.perf_counter() - t))
         cap["on"] = False
@@ -976,9 +1050,16 @@ def main() -> None:
             _fail(f"kernel {name} did not launch on the main path")
     if main_counts["sort3"] != 2 * args.scans:
         _fail(f"K9 launched {main_counts['sort3']} times in {args.scans} scans, not twice a scan")
-    for key in ("h_model", "deskew", "knn", "loop", "loop_out", "sort"):
+    for key in ("h_model", "deskew", "knn", "loop", "loop_out", "sort", "syncs"):
         if key not in cap:
             _fail(f"capture of scan {capture_at} missed {key}")
+    sites = {f: cap["syncs"].count(f) for f in sorted(set(cap["syncs"]))}
+    print(f"[smoke] main: scan {capture_at} under set_sync_debug_mode(\"warn\"): "
+          f"{len(cap['syncs'])} synchronizing calls {json.dumps(sites)}", flush=True)
+    wrapped = [f for f in sites if os.path.basename(f) in
+               ("update_loop.py", "hstats.py", "update_body.py", "gain.py")]
+    if wrapped:
+        _fail(f"a kernel wrapper synchronized the host: {wrapped}")
 
     # ---- 4. fallback path on the captured scan ----
     h = cap["h_model"]
@@ -1036,19 +1117,26 @@ def main() -> None:
 
     def report(name, err, k_fn, p_fn, nbytes, ops, lib_fn=None, extra="", launches=None,
                kernel=None):
-        ms, pms = _time_ms(k_fn), _time_ms(p_fn, reps=3)
-        lms = _time_ms(lib_fn) if lib_fn is not None else None
-        bms, by = _bound(nbytes, ops)
+        """A kernel row: CUDA-event times through the wrapper (ms) and of the
+        plain version, the kernel's own device time (device_ms, torch.profiler
+        matched by kernel name over as many reps), the bound, and the one
+        PyTorch call's event and device times."""
         kernel = kernel or name
+        ms, pms = _time_ms(k_fn), _time_ms(p_fn, reps=3)
+        dms = _device_ms(k_fn, "fl_" + kernel)
+        lms = _time_ms(lib_fn) if lib_fn is not None else None
+        ldms = _device_ms(lib_fn) if lib_fn is not None else None
+        bms, by = _bound(nbytes, ops)
         _, src, rep = wrappers[kernel]
         rows_out.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                          "launches": main_counts[kernel] if launches is None else launches,
                          "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                         "bound_by": by, "library_ms": lms})
-        lib = "none" if lms is None else f"{lms:.4f} ms"
-        print(f"[smoke] kernel {name}: max_abs_err {err:.3e} | {ms:.4f} ms vs plain "
-              f"{pms:.4f} ms | bound {bms:.4f} ms ({by}) | one PyTorch call {lib} {extra}",
-              flush=True)
+                         "bound_by": by, "library_ms": lms, "device_ms": dms,
+                         "library_device_ms": ldms})
+        lib = "none" if lib_fn is None else f"{lms:.4f} ms (device {_fmt(ldms)})"
+        print(f"[smoke] kernel {name}: max_abs_err {err:.3e} | {ms:.4f} ms (device "
+              f"{_fmt(dms)}) vs plain {pms:.4f} ms | bound {bms:.4f} ms ({by}) | one PyTorch "
+              f"call {lib} {extra}", flush=True)
 
     # K1 deskew — rtol 1e-4 / atol 2e-4 (f32 association, transcendental ulps)
     pts, t_pts, valid, frames, x_last, q_ext, t_ext = cap["deskew"]
@@ -1104,8 +1192,18 @@ def main() -> None:
     # rounding of a sum scales with Σ|terms| (for the diagonal of HᵀH that
     # is the entry itself, elsewhere it covers cancellation)
     (X4, sc4), hkw = cap3["hstats"]
-    a = _once("K4", hstats.hstats, lambda: hstats.hstats(X4, sc4, **hkw))
+
+    def k4():
+        return hstats.hstats(X4, sc4, **hkw)
+
+    a = _once("K4", hstats.hstats, lambda: _no_sync("K4's wrapper", k4))
     b = hstats.hstats_plain(X4, sc4, **hkw)
+    again = k4()
+    if not (torch.equal(a[0], again[0]) and torch.equal(a[1], again[1])):
+        _fail("K4: two launches on the same inputs differ")
+    n4 = _cuda_launches(torch, k4, "fl_hstats")
+    if n4 != 1:
+        _fail(f"K4 ran {n4} CUDA kernels a call, not one")
     Np4 = X4.shape[0] // 8
     cols, hneg = hstats.h_rows(tuple(X4[i * Np4:(i + 1) * Np4] for i in range(8)), sc4, **hkw)
     Ha = torch.stack(cols, dim=-1).double().abs()
@@ -1114,14 +1212,15 @@ def main() -> None:
     H4 = torch.stack(cols, dim=-1).contiguous()
     # ~290 float32 operations a point: its H row (~110) and its share of
     # the 78 + 12 sums of HᵀH and Hᵀh (2 each)
-    report("hstats", err, lambda: hstats.hstats(X4, sc4, **hkw),
-           lambda: hstats.hstats_plain(X4, sc4, **hkw), _nbytes(X4, sc4, *a), 290 * Np4,
-           lambda: torch.matmul(H4.T, H4), f"(Np={Np4})")
+    report("hstats", err, k4, lambda: hstats.hstats_plain(X4, sc4, **hkw),
+           _nbytes(X4, sc4, *a), 290 * Np4, lambda: torch.matmul(H4.T, H4),
+           f"(Np={Np4}, {n4} CUDA kernel a call, bit-equal run to run)")
 
     # K5 update_body — x rtol 1e-3 / atol 1e-4, P and dx_ rtol 1e-3 / atol 1e-3
     # (Jacobi vs eigh guard, f32 gain conditioning)
     ba, bkw = cap3["body"]
-    a = _once("K5", update_body.update_body, lambda: update_body.update_body(*ba, **bkw))
+    a = _once("K5", update_body.update_body,
+              lambda: _no_sync("K5's wrapper", lambda: update_body.update_body(*ba, **bkw)))
     b = update_body.update_body_plain(*ba, **bkw)
     err = max(_close("K5 x", st.as_vector(a[0]), st.as_vector(b[0]), 1e-3, 1e-4),
               _close("K5 P", a[1], b[1], 1e-3, 1e-3), _close("K5 dx_", a[2], b[2], 1e-3, 1e-3))
@@ -1136,7 +1235,15 @@ def main() -> None:
         out = update_loop.update_loop(*la, **lkw, with_aux=True)
         return out[0], out[1], out[6]
 
-    a, b = _once("K6", update_loop.update_loop, k6), update_loop.update_loop_plain(*la, **lkw)
+    a = _once("K6", update_loop.update_loop, lambda: _no_sync("K6's wrapper", k6))
+    b = update_loop.update_loop_plain(*la, **lkw)
+    again = k6()
+    if not (torch.equal(st.as_vector(a[0]), st.as_vector(again[0]))
+            and torch.equal(a[1], again[1]) and torch.equal(a[2], again[2])):
+        _fail("K6: two launches on the same inputs differ")
+    n6 = _cuda_launches(torch, k6, "fl_update_loop")
+    if n6 != 1:
+        _fail(f"K6 ran {n6} CUDA kernels a call, not one")
     if a[2][[0, 1, 4]].tolist() != b[2][[0, 1, 4]].tolist():
         _fail(f"K6 (n_iters, ok, stale) {a[2][[0, 1, 4]].tolist()} != plain {b[2][[0, 1, 4]].tolist()}")
     err = max(_close("K6 x", st.as_vector(a[0]), st.as_vector(b[0]), 1e-3, 2e-4),
@@ -1147,7 +1254,8 @@ def main() -> None:
     report("update_loop", err, k6, lambda: update_loop.update_loop_plain(*la, **lkw),
            _nbytes(*la, *a),
            it6 * ((540 + 8 * W6) * Np6 + 3e5),
-           extra=f"(Np={Np6}, n_iters {it6}, ok {bool(a[2][1] > 0)}, stale {int(a[2][4])})")
+           extra=f"(Np={Np6}, n_iters {it6}, ok {bool(a[2][1] > 0)}, stale {int(a[2][4])}, "
+                 f"{n6} CUDA kernel a call, bit-equal run to run)")
 
     # K8 gain — against its plain version gain_math (rtol 1e-3 + 1e-3 of
     # the largest entry: the plain version's products are library matmuls,
@@ -1161,7 +1269,9 @@ def main() -> None:
     def k8_plain():
         return gain.gain_math(g_HTH, g_HTh, g_P[:, :gain.M].contiguous(), inv_R8)
 
-    a, b = _once("K8", gain.gain, lambda: gain.gain(g_HTH, g_HTh, g_P, g_R)), k8_plain()
+    a = _once("K8", gain.gain,
+              lambda: _no_sync("K8's wrapper", lambda: gain.gain(g_HTH, g_HTh, g_P, g_R)))
+    b = k8_plain()
     lib8 = gain.gain_reference(g_HTH, g_HTh, g_P, g_R)
     truth8 = gain.gain_reference(g_HTH.double(), g_HTh.double(), g_P.double(), g_R)
     err = 0.0

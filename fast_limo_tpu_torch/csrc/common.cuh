@@ -2,7 +2,8 @@
 //
 // Small-manifold math (quaternions, SO3/S2 charts, MTK semantics) as
 // scalar device functions, transcribed from fast_limo_tpu/ops/so3.py,
-// ops/s2.py and ops/update_body.py, plus deterministic block reductions.
+// ops/s2.py and ops/update_body.py, plus block-parallel products,
+// deterministic cluster reductions and the launch of one thread-block cluster.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false.
 // No fast-math: voxel/band keys use floorf(g / h) with IEEE division and
@@ -10,6 +11,7 @@
 // rounded like the CPU reference so distances and keys compare exactly.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -23,6 +25,9 @@
 #define FL_XF 26   // flat state values: pos3 rot4 rotLI4 tLI3 vel3 bg3 ba3 grav3
 
 #define FL_DEV __device__ __forceinline__
+#define FL_FULL 0xffffffffu   // every lane of a warp
+
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------- quats
 FL_DEV void fl_qmul(const float* q, const float* p, float* o) {
@@ -218,22 +223,6 @@ FL_DEV void fl_state_boxminus(const float* x, const float* x0, float* dx) {
 }
 
 // ------------------------------------------------------- block helpers
-// Deterministic tree sum over a power-of-two block (red: blockDim floats).
-// Every thread must call it; returns the total on all threads.
-FL_DEV float fl_block_sum(float v, float* red) {
-  int tid = threadIdx.x, nt = blockDim.x;
-  __syncthreads();
-  red[tid] = v;
-  __syncthreads();
-  for (int s = nt / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
-  }
-  float out = red[0];
-  __syncthreads();
-  return out;
-}
-
 // Block-parallel C(n×p) = op(A)(n×m) · op(B)(m×p), row-major with leading
 // dims; each output by one thread with k-ascending sums.  C must not alias.
 FL_DEV void fl_blk_mm(float* C, const float* A, int lda, bool tA,
@@ -249,4 +238,93 @@ FL_DEV void fl_blk_mm(float* C, const float* A, int lda, bool tA,
     C[i * p + j] = acc;
   }
   __syncthreads();
+}
+
+// ----------------------------------------------------- cluster reductions
+// Fixed-order warp tree: lane 0 ends with the warp's sum.
+FL_DEV float fl_warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FL_FULL, v, off);
+  return v;
+}
+
+#define FL_MAX_WARPS 32
+#define FL_SUM_MAX 4     // values of one fl_cluster_sum call
+#define FL_SUM_SITES 2   // call sites, each with its own slot
+
+// One block's scratch for fl_cluster_sum.
+struct FlClusterRed {
+  float warp[FL_MAX_WARPS][FL_SUM_MAX];
+  float slot[FL_SUM_SITES][FL_SUM_MAX];   // this block's sums, read by every rank
+  float tot[FL_SUM_MAX];
+};
+
+// Sums N values of every thread of the cluster in a fixed order — a warp
+// tree, the warps in order, then the blocks in rank order through
+// distributed shared memory — so the result is bit-reproducible (no
+// atomics) and the same on every block.  Every thread of every block calls
+// it with the same N and site; on return v holds the cluster's sums.  One
+// cluster barrier a call: a site's slot is rewritten only by the site's
+// next call, which no block reaches before every block has passed a later
+// cluster barrier (each kernel calls a site at most once between two
+// other cluster barriers).
+template <int N>
+FL_DEV void fl_cluster_sum(float (&v)[N], FlClusterRed* r, int site) {
+  static_assert(N <= FL_SUM_MAX, "fl_cluster_sum: too many values");
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x, nw = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = fl_warp_sum(v[j]);
+  if ((tid & 31) == 0)
+#pragma unroll
+    for (int j = 0; j < N; ++j) r->warp[tid >> 5][j] = v[j];
+  __syncthreads();
+  if (tid < N) {
+    float s = 0.0f;
+    for (int w = 0; w < nw; ++w) s += r->warp[w][tid];
+    r->slot[site][tid] = s;
+  }
+  cl.sync();
+  if (tid < N) {
+    float s = 0.0f;
+    for (unsigned q = 0; q < cl.num_blocks(); ++q) s += cl.map_shared_rank(&r->slot[site][0], q)[tid];
+    r->tot[tid] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = r->tot[j];
+}
+
+// ------------------------------------------------- one cluster, launched
+// The launch of ONE cluster of `blocks` blocks (the grid is the cluster)
+// through cudaLaunchKernelEx.  Used in place: cfg points at attr.
+struct FlClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  FlClusterLaunch(int blocks, int threads, cudaStream_t stream) : cfg(), attr() {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = blocks;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Whether one cluster of this launch fits the device: allows a non-portable
+// cluster size (more than 8 blocks) first, then asks the occupancy
+// calculator (cudaOccupancyMaxActiveClusters ≥ 1).  Nothing falls back.
+template <typename Kernel>
+inline cudaError_t fl_cluster_fits(Kernel kernel, const cudaLaunchConfig_t* cfg) {
+  cudaError_t e = cudaSuccess;
+  if (cfg->gridDim.x > 8)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kernel, cfg);
+  if (e == cudaSuccess && n < 1) e = cudaErrorLaunchOutOfResources;
+  return e;
 }

@@ -3,7 +3,7 @@
 //
 // One block runs fl_gain_math (gain.cuh), the device function the update
 // iteration K5/K6 runs inside its body.  Inputs HᵀH (12,12), Hᵀh (12,),
-// P (23,23) of which columns 0:12 are read, sc = [1/R]; outputs K_x
+// P (23,23) of which columns 0:12 are read, 1/R by value; outputs K_x
 // (23,12), K_h (23,), K (23,12).  The work is a serial 12×12 factorization
 // and a pivoted elimination of ~10⁴ flops: latency-bound, so one block
 // keeps everything in shared memory.  Serves the split-body configuration
@@ -15,8 +15,8 @@
 
 __global__ void __launch_bounds__(FL_GAIN_THREADS)
 fl_gain_kernel(const float* __restrict__ HTH, const float* __restrict__ HTh,
-               const float* __restrict__ P, const float* __restrict__ sc,
-               float* __restrict__ Kx, float* __restrict__ Kh, float* __restrict__ K) {
+               const float* __restrict__ P, float inv_R, float* __restrict__ Kx,
+               float* __restrict__ Kh, float* __restrict__ K) {
   __shared__ FlGainWS g;
   __shared__ float Pm[FL_NS * FL_M];
   const int tid = threadIdx.x;
@@ -25,13 +25,13 @@ fl_gain_kernel(const float* __restrict__ HTH, const float* __restrict__ HTh,
   for (int o = tid; o < FL_NS * FL_M; o += blockDim.x)
     Pm[o] = P[(o / FL_M) * FL_NS + o % FL_M];
   __syncthreads();
-  fl_gain_math(&g, Pm, FL_M, sc[0]);
+  fl_gain_math(&g, Pm, FL_M, inv_R);
   for (int i = tid; i < FL_NS * FL_M; i += blockDim.x) { Kx[i] = g.Kx[i]; K[i] = g.K[i]; }
   for (int i = tid; i < FL_NS; i += blockDim.x) Kh[i] = g.Kh[i];
 }
 
-extern "C" int fl_gain(const float* HTH, const float* HTh, const float* P, const float* sc,
+extern "C" int fl_gain(const float* HTH, const float* HTh, const float* P, float inv_R,
                        float* Kx, float* Kh, float* K, cudaStream_t stream) {
-  fl_gain_kernel<<<1, FL_GAIN_THREADS, 0, stream>>>(HTH, HTh, P, sc, Kx, Kh, K);
+  fl_gain_kernel<<<1, FL_GAIN_THREADS, 0, stream>>>(HTH, HTh, P, inv_R, Kx, Kh, K);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // K4's per-point body: world transform, point-to-plane residual and the
 // keep-masked 12-column Jacobian row (transcribes fast_limo_tpu/ops/
-// hstats.py:glob_math/stats_math; reference Localizer.cpp:537-577).
+// hstats.py:glob_math/stats_math; reference Localizer.cpp:537-577), its
+// 78 + 12 products, and their reduction over a thread-block cluster.
 // Shared by the standalone statistics kernel (hstats.cu) and the
 // whole-loop update kernel (update_loop.cu).
 #pragma once
@@ -65,4 +66,64 @@ FL_DEV void fl_tri_pair(int e, int* a, int* b) {
   while (e >= base + (12 - r)) { base += 12 - r; ++r; }
   *a = r;
   *b = r + (e - base);
+}
+
+#define FL_NSTAT 90   // 78 upper-triangle HᵀH entries (fl_tri_pair order) + 12 Hᵀh
+
+// acc += the 78 + 12 products of one H row and its −dist
+FL_DEV void fl_stats_add(float (&acc)[FL_NSTAT], const float* H, float hn) {
+  int e = 0;
+#pragma unroll
+  for (int a = 0; a < 12; ++a)
+#pragma unroll
+    for (int b = a; b < 12; ++b) acc[e++] += H[a] * H[b];
+#pragma unroll
+  for (int a = 0; a < 12; ++a) acc[78 + a] += H[a] * hn;
+}
+
+// One block's scratch for fl_cluster_stats (NW warps).
+template <int NW>
+struct FlStatsRed {
+  float warp[NW][FL_NSTAT];
+  float row[FL_NSTAT];   // the block's sums, read by rank 0
+};
+
+// Reduces every thread's 90 products over the cluster into HᵀH (12×12,
+// both triangles, row stride 12) and Hᵀh (12), in three fixed-order steps:
+// a __shfl_down_sync tree inside each warp; the warps' rows summed in warp
+// order into the block's row; after a cluster barrier, rank 0 sums every
+// block's row in rank order through distributed shared memory and writes
+// the result.  No float atomics: bit-reproducible run to run (not bit-equal
+// to a two-pass order).  Every thread of every block calls it; only rank 0
+// writes.  Rank 0 has read the rows when it reaches its next cluster
+// barrier: until every block has passed that barrier, none may rewrite
+// r->row or exit.
+template <int NW>
+FL_DEV void fl_cluster_stats(float (&acc)[FL_NSTAT], FlStatsRed<NW>* r, float* HTH, float* HTh) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < FL_NSTAT; ++e) acc[e] = fl_warp_sum(acc[e]);
+  if ((tid & 31) == 0)
+#pragma unroll
+    for (int e = 0; e < FL_NSTAT; ++e) r->warp[tid >> 5][e] = acc[e];
+  __syncthreads();
+  if (tid < FL_NSTAT) {
+    float s = 0.0f;
+    for (int w = 0; w < NW; ++w) s += r->warp[w][tid];
+    r->row[tid] = s;
+  }
+  cl.sync();
+  if (cl.block_rank() == 0 && tid < FL_NSTAT) {
+    float s = 0.0f;
+    for (unsigned q = 0; q < cl.num_blocks(); ++q) s += cl.map_shared_rank(&r->row[0], q)[tid];
+    if (tid < 78) {
+      int a, b;
+      fl_tri_pair(tid, &a, &b);
+      HTH[a * FL_M + b] = s;
+      HTH[b * FL_M + a] = s;
+    } else {
+      HTh[tid - 78] = s;
+    }
+  }
 }

@@ -12,9 +12,14 @@
 //   boxplus, Joseph P     J₂·(A·P_it·Aᵀ + R·K·Kᵀ)·J₂ᵀ, symmetrized
 //
 // The 23×23 products run block-parallel (one output per thread); the
-// inherently serial steps (12×12 Cholesky, pivot choice, Jacobi sweeps,
-// manifold charts) run on thread 0 between barriers.  Shared by the
-// standalone body kernel (update_body.cu) and the whole-loop kernel.
+// inherently serial steps run on warps with their rows in registers: the
+// 12×12 Cholesky and the pivoted elimination (gain.cuh) and the 6×6
+// Jacobi sweeps on warp 0; the three chart blocks, and the boxplus, one
+// lane each on four warps at once.  Every step repeats, in their order,
+// the float operations of a one-thread version, so it gives that version's
+// bits.
+// Shared by the standalone body kernel (update_body.cu) and the whole-loop
+// kernel; needs at least 128 threads.
 #pragma once
 
 #include "common.cuh"
@@ -35,6 +40,7 @@ struct FlIterWS {
   float dxo[FL_NS];           // dx_ (out, pre-guard)
   float xn[FL_XF];            // out
   float blk[22];              // chart blocks: A (9), A (9), res2 (4)
+  float head[6];              // guarded pose head of dx_
   float gersh, min_eig;       // out
 };
 
@@ -51,30 +57,55 @@ FL_DEV void fl_fill_J(float* J, const float* blk) {
   __syncthreads();
 }
 
-// blk ← (A(a)ᵀ, A(b)ᵀ, Nx_yy(g)·Mx(gp, d2)) — thread 0 only
-FL_DEV void fl_chart_blocks(const float* a, const float* b, const float* g, const float* gp,
-                            const float* d2, float* blk) {
-  float A[9], N[6], Mx[6];
-  fl_A_matrix(a, A);
+// out ← A(v)ᵀ (3×3) — one thread
+FL_DEV void fl_A_T(const float* v, float* out) {
+  float A[9];
+  fl_A_matrix(v, A);
   for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) blk[i * 3 + j] = A[j * 3 + i];
-  fl_A_matrix(b, A);
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) blk[9 + i * 3 + j] = A[j * 3 + i];
-  fl_nx_yy(g, N);
-  fl_mx(gp, d2, Mx);
-  fl_mm(N, Mx, blk + 18, 2, 3, 2);
+    for (int j = 0; j < 3; ++j) out[i * 3 + j] = A[j * 3 + i];
 }
 
-// 6×6 symmetric eigh by cyclic Jacobi (5 sweeps), eigenpairs sorted
-// ascending (update_body._jacobi_eigh6 + _sort_eig6) — thread 0 only
-FL_DEV void fl_jacobi_eigh6(const float* H, float* w, float* V) {
-  float A[36];
-  for (int i = 0; i < 36; ++i) { A[i] = H[i]; V[i] = (i % 7 == 0) ? 1.0f : 0.0f; }
-  for (int sweep = 0; sweep < 5; ++sweep)
+// out ← Nx_yy(g)·Mx(gp, d2) (2×2) — one thread
+FL_DEV void fl_res2(const float* g, const float* gp, const float* d2, float* out) {
+  float N[6], Mx[6];
+  fl_nx_yy(g, N);
+  fl_mx(gp, d2, Mx);
+  fl_mm(N, Mx, out, 2, 3, 2);
+}
+
+// blk ← (A(a)ᵀ, A(b)ᵀ, Nx_yy(g)·Mx(gp, d2)), one lane of each of warps 0-2
+FL_DEV void fl_chart_blocks(const float* a, const float* b, const float* g, const float* gp,
+                            const float* d2, float* blk) {
+  const int tid = threadIdx.x;
+  if (tid == 0) fl_A_T(a, blk);
+  else if (tid == 32) fl_A_T(b, blk + 9);
+  else if (tid == 64) fl_res2(g, gp, d2, blk + 18);
+}
+
+// The degeneracy guard on the pose head (update_body.jacobi_guard_head) by
+// ONE warp (all 32 lanes call it): 6×6 cyclic Jacobi eigh (5 sweeps),
+// eigenpairs sorted ascending (update_body._jacobi_eigh6 + _sort_eig6),
+// spectral projector.  Lane i < 6 holds row i of A and of V in registers;
+// a rotation takes its pivots and the rows p, q by shuffles.  The same
+// float operations, in their order, of one-thread sweeps, so their bits.
+// Lanes 0-5 write out6, lane 0 *min_eig_out.
+FL_DEV void fl_guard_head_warp(const float* HTH, const float* dx6, float D, float* out6,
+                               float* min_eig_out) {
+  const int lane = threadIdx.x & 31;
+  const int r = lane < 6 ? lane : 0;
+  float a[6], v[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    a[j] = HTH[r * FL_M + j];
+    v[j] = r == j ? 1.0f : 0.0f;
+  }
+  for (int sweep = 0; sweep < 5; ++sweep) {
+#pragma unroll
     for (int p = 0; p < 5; ++p)
+#pragma unroll
       for (int q = p + 1; q < 6; ++q) {
-        float app = A[p * 6 + p], aqq = A[q * 6 + q], apq = A[p * 6 + q];
+        float app = __shfl_sync(FL_FULL, a[p], p), aqq = __shfl_sync(FL_FULL, a[q], q);
+        float apq = __shfl_sync(FL_FULL, a[q], p);
         bool small = fabsf(apq) <= 1e-30f;
         float safe = small ? 1.0f : apq;
         float tau = (aqq - app) / (2.0f * safe);
@@ -83,55 +114,60 @@ FL_DEV void fl_jacobi_eigh6(const float* H, float* w, float* V) {
         if (small) t = 0.0f;
         float c = 1.0f / sqrtf(1.0f + t * t);
         float s = t * c;
-        // A ← A·G (columns p, q), then Gᵀ·A (rows p, q); V ← V·G
-        for (int i = 0; i < 6; ++i) {
-          float aip = A[i * 6 + p], aiq = A[i * 6 + q];
-          A[i * 6 + p] = aip * c + aiq * (-s);
-          A[i * 6 + q] = aip * s + aiq * c;
-          float vip = V[i * 6 + p], viq = V[i * 6 + q];
-          V[i * 6 + p] = vip * c + viq * (-s);
-          V[i * 6 + q] = vip * s + viq * c;
-        }
+        // A ← A·G (columns p, q), V ← V·G, then Gᵀ·A (rows p, q)
+        float aip = a[p], aiq = a[q];
+        a[p] = aip * c + aiq * (-s);
+        a[q] = aip * s + aiq * c;
+        float vip = v[p], viq = v[q];
+        v[p] = vip * c + viq * (-s);
+        v[q] = vip * s + viq * c;
+#pragma unroll
         for (int j = 0; j < 6; ++j) {
-          float apj = A[p * 6 + j], aqj = A[q * 6 + j];
-          A[p * 6 + j] = c * apj + (-s) * aqj;
-          A[q * 6 + j] = s * apj + c * aqj;
+          float apj = __shfl_sync(FL_FULL, a[j], p), aqj = __shfl_sync(FL_FULL, a[j], q);
+          if (lane == p) a[j] = c * apj + (-s) * aqj;
+          if (lane == q) a[j] = s * apj + c * aqj;
         }
       }
-  for (int i = 0; i < 6; ++i) w[i] = A[i * 6 + i];
+  }
+  float wr = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 6; ++j)
+    if (j == r) wr = a[j];
+  float w[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) w[j] = __shfl_sync(FL_FULL, wr, j);
+#pragma unroll
   for (int rnd = 0; rnd < 5; ++rnd)
+#pragma unroll
     for (int j = 0; j < 5 - rnd; ++j)
       if (w[j] > w[j + 1]) {
         float tw = w[j]; w[j] = w[j + 1]; w[j + 1] = tw;
-        for (int i = 0; i < 6; ++i) {
-          float tv = V[i * 6 + j]; V[i * 6 + j] = V[i * 6 + j + 1]; V[i * 6 + j + 1] = tv;
-        }
+        float tv = v[j]; v[j] = v[j + 1]; v[j + 1] = tv;
       }
-}
-
-// The degeneracy guard on the pose head (update_body.jacobi_guard_head)
-FL_DEV float fl_guard_head(const float* HTH, const float* dx6, float D, float* out6) {
-  float H6[36], w[6], V[36];
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) H6[i * 6 + j] = HTH[i * FL_M + j];
-  fl_jacobi_eigh6(H6, w, V);
+  // spectral projector
+  const float dxr = dx6[r];
   float m[6], y[6];
+#pragma unroll
   for (int j = 0; j < 6; ++j) {
     m[j] = w[j] >= D ? 1.0f : 0.0f;
     float acc = 0.0f;
-    for (int i = 0; i < 6; ++i) acc += V[i * 6 + j] * dx6[i];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) acc += __shfl_sync(FL_FULL, v[j], i) * dx6[i];
     y[j] = acc;
   }
   float wprod = w[0] * w[1] * w[2] * w[3] * w[4] * w[5];
   float min_eig = w[0];
+#pragma unroll
   for (int j = 1; j < 6; ++j) min_eig = fminf(min_eig, w[j]);
-  for (int i = 0; i < 6; ++i) {
-    float g = 0.0f;
-    for (int j = 0; j < 6; ++j) g += (V[i * 6 + j] * m[j]) * y[j];
-    if (wprod < 1e-20f) g = m[i] * dx6[i];
-    out6[i] = min_eig >= D ? dx6[i] : g;
+  float gh = 0.0f, mr = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    gh += (v[j] * m[j]) * y[j];
+    if (j == r) mr = m[j];
   }
-  return min_eig;
+  if (wprod < 1e-20f) gh = mr * dxr;
+  if (lane < 6) out6[r] = min_eig >= D ? dxr : gh;
+  if (lane == 0) *min_eig_out = min_eig;
 }
 
 // One full iteration on the workspace; every thread of the block calls it.
@@ -140,7 +176,7 @@ FL_DEV void fl_iter_body(FlIterWS* w, float inv_R, float D) {
   const int NS = FL_NS, M = FL_M;
 
   // ---- chart projection J₁ ----
-  if (tid == 0) fl_chart_blocks(w->dx + 3, w->dx + 6, w->x + 23, w->xp + 23, w->dx + 21, w->blk);
+  fl_chart_blocks(w->dx + 3, w->dx + 6, w->x + 23, w->xp + 23, w->dx + 21, w->blk);
   __syncthreads();
   fl_fill_J(w->J, w->blk);
   for (int i = tid; i < NS; i += nt) {
@@ -162,8 +198,10 @@ FL_DEV void fl_iter_body(FlIterWS* w, float inv_R, float D) {
   }
   __syncthreads();
 
-  // ---- Gershgorin telemetry, guard, boxplus, J₂ blocks (serial) ----
-  if (tid == 0) {
+  // ---- guard (warp 0), Gershgorin telemetry (warp 1) ----
+  if (tid < 32) {
+    fl_guard_head_warp(w->g.HTH, w->dxo, D, w->head, &w->min_eig);
+  } else if (tid == 32) {
     float gm = INFINITY;
     for (int i = 0; i < 6; ++i) {
       float r = 0.0f;
@@ -172,19 +210,28 @@ FL_DEV void fl_iter_body(FlIterWS* w, float inv_R, float D) {
       gm = fminf(gm, di - (r - fabsf(di)));
     }
     w->gersh = gm;
-    float head[6];
-    w->min_eig = fl_guard_head(w->g.HTH, w->dxo, D, head);
+  }
+  __syncthreads();
+  // ---- boxplus and the J₂ chart blocks, one lane of each of warps 0-3 ----
+  {
     const float* d = w->dxo;
     const float* x = w->x;
-    float q[4];
-    for (int i = 0; i < 3; ++i) w->xn[i] = x[i] + head[i];
-    fl_exp_quat(head + 3, 0.5f, q);
-    fl_qmul(x + 3, q, w->xn + 3);
-    fl_exp_quat(d + 6, 0.5f, q);
-    fl_qmul(x + 7, q, w->xn + 7);
-    for (int i = 0; i < 12; ++i) w->xn[11 + i] = x[11 + i] + d[9 + i];
-    fl_s2_boxplus(x + 23, d + 21, w->xn + 23);
-    fl_chart_blocks(d + 3, d + 6, w->xn + 23, w->xp + 23, d + 21, w->blk);
+    if (tid == 0) {
+      fl_A_T(d + 3, w->blk);
+    } else if (tid == 32) {
+      fl_A_T(d + 6, w->blk + 9);
+    } else if (tid == 64) {
+      fl_s2_boxplus(x + 23, d + 21, w->xn + 23);
+      fl_res2(w->xn + 23, w->xp + 23, d + 21, w->blk + 18);
+    } else if (tid == 96) {
+      float q[4];
+      for (int i = 0; i < 3; ++i) w->xn[i] = x[i] + w->head[i];
+      fl_exp_quat(w->head + 3, 0.5f, q);
+      fl_qmul(x + 3, q, w->xn + 3);
+      fl_exp_quat(d + 6, 0.5f, q);
+      fl_qmul(x + 7, q, w->xn + 7);
+      for (int i = 0; i < 12; ++i) w->xn[11 + i] = x[11 + i] + d[9 + i];
+    }
   }
   __syncthreads();
 

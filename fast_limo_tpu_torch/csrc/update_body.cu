@@ -14,11 +14,10 @@
 
 #define FL_UB_THREADS 256
 
-// sc: [inv_R, D]
 __global__ void __launch_bounds__(FL_UB_THREADS)
 fl_update_body_kernel(const float* __restrict__ HTH, const float* __restrict__ HTh,
                       const float* __restrict__ P, const float* __restrict__ x,
-                      const float* __restrict__ x_prop, const float* __restrict__ sc,
+                      const float* __restrict__ x_prop, float inv_R, float D,
                       float* __restrict__ xn, float* __restrict__ Pf,
                       float* __restrict__ dxo, float* __restrict__ gm) {
   __shared__ FlIterWS w;
@@ -30,7 +29,7 @@ fl_update_body_kernel(const float* __restrict__ HTH, const float* __restrict__ H
   __syncthreads();
   if (tid == 0) fl_state_boxminus(w.x, w.xp, w.dx);
   __syncthreads();
-  fl_iter_body(&w, sc[0], sc[1]);
+  fl_iter_body(&w, inv_R, D);
   for (int i = tid; i < FL_XF; i += blockDim.x) xn[i] = w.xn[i];
   for (int i = tid; i < FL_NS * FL_NS; i += blockDim.x) Pf[i] = w.Pf[i];
   for (int i = tid; i < FL_NS; i += blockDim.x) dxo[i] = w.dxo[i];
@@ -38,9 +37,9 @@ fl_update_body_kernel(const float* __restrict__ HTH, const float* __restrict__ H
 }
 
 extern "C" int fl_update_body(const float* HTH, const float* HTh, const float* P,
-                              const float* x, const float* x_prop, const float* sc, float* xn,
-                              float* Pf, float* dxo, float* gm, cudaStream_t stream) {
-  fl_update_body_kernel<<<1, FL_UB_THREADS, 0, stream>>>(HTH, HTh, P, x, x_prop, sc, xn, Pf,
-                                                         dxo, gm);
+                              const float* x, const float* x_prop, float inv_R, float D,
+                              float* xn, float* Pf, float* dxo, float* gm, cudaStream_t stream) {
+  fl_update_body_kernel<<<1, FL_UB_THREADS, 0, stream>>>(HTH, HTh, P, x, x_prop, inv_R, D, xn,
+                                                         Pf, dxo, gm);
   return (int)cudaGetLastError();
 }

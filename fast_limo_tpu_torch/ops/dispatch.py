@@ -35,19 +35,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points: name → argument types (pointers and the stream as c_void_p)
+# C entry points: name → argument types (pointers and the stream as c_void_p;
+# scalars by value, so a launch uploads nothing)
 _SIGNATURES = {
     "fl_deskew": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P],
     "fl_knn_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "fl_masked_topk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "fl_fit_planes": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P],
-    "fl_hstats_rows": [_I],
-    "fl_hstats": [_P, _I, _P, _I, _P, _P, _P, _P],
-    "fl_gain": [_P, _P, _P, _P, _P, _P, _P, _P],
-    "fl_update_body": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "fl_hstats": [_P, _I, _P, _I, _P, _P],
+    "fl_gain": [_P, _P, _P, _F, _P, _P, _P, _P],
+    "fl_update_body": [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P],
     "fl_update_loop_scratch": [_I],
-    "fl_update_loop": [_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _I, _F, _I,
-                       _I, _P, _P, _P, _P, _P],
+    "fl_update_loop": [_P, _I, _P, _P, _F, _F, _F, _I, _I, _F, _F, _F, _F, _I, _F,
+                       _I, _I, _P, _P, _P, _P, _P],
     "fl_sort3": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
 }
 

@@ -101,12 +101,11 @@ def _launch(HTH, HTh, P, R):
     dispatch.require(HTH, "HTH", shape=(M, M))
     dispatch.require(HTh, "HTh", shape=(M,))
     dispatch.require(P, "P", shape=(NS, NS))
-    sc = torch.tensor([1.0 / R], dtype=torch.float32, device=dev)
     K_x = torch.empty((NS, M), dtype=torch.float32, device=dev)
     K_h = torch.empty(NS, dtype=torch.float32, device=dev)
     K = torch.empty((NS, M), dtype=torch.float32, device=dev)
     err = dispatch.library().fl_gain(
-        dispatch.ptr(HTH), dispatch.ptr(HTh), dispatch.ptr(P), dispatch.ptr(sc),
+        dispatch.ptr(HTH), dispatch.ptr(HTh), dispatch.ptr(P), 1.0 / float(R),
         dispatch.ptr(K_x), dispatch.ptr(K_h), dispatch.ptr(K), dispatch.stream())
     dispatch.check(err, "gain")
     gain.launches += 1

@@ -8,8 +8,9 @@ the x-independent channel pack ``pack_inputs`` (8 planes
 [px py pz nx ny nz nd keep] of Np = 128·⌈N/128⌉ floats — the JAX layout)
 and the 14 pose scalars ``pack_scalars(x)``.
 
-``hstats`` launches ``csrc/hstats.cu`` on CUDA tensors, ``hstats_plain``
-runs on CPU tensors.
+``hstats`` launches ``csrc/hstats.cu`` (one thread-block cluster, one
+kernel, one (156,) output whose views it returns) on CUDA tensors,
+``hstats_plain`` runs on CPU tensors.
 """
 
 from __future__ import annotations
@@ -100,17 +101,13 @@ def _launch(X, sc, *, estimate_extrinsics: bool):
     Np = X.shape[0] // 8
     dispatch.require(X, "X", shape=(8 * Np,))
     dispatch.require(sc, "scalars", shape=(14,))
-    lib = dispatch.library()
-    part = torch.empty(lib.fl_hstats_rows(Np) * 90, dtype=torch.float32,
-                       device=X.device)
-    HTH = torch.empty((M, M), dtype=torch.float32, device=X.device)
-    HTh = torch.empty((M,), dtype=torch.float32, device=X.device)
-    err = lib.fl_hstats(dispatch.ptr(X), Np, dispatch.ptr(sc),
-                        int(bool(estimate_extrinsics)), dispatch.ptr(part),
-                        dispatch.ptr(HTH), dispatch.ptr(HTh), dispatch.stream())
+    out = torch.empty(M * M + M, dtype=torch.float32, device=X.device)
+    err = dispatch.library().fl_hstats(dispatch.ptr(X), Np, dispatch.ptr(sc),
+                                       int(bool(estimate_extrinsics)), dispatch.ptr(out),
+                                       dispatch.stream())
     dispatch.check(err, "hstats")
     hstats.launches += 1
-    return HTH, HTh
+    return out[:M * M].view(M, M), out[M * M:]
 
 
 def hstats(X, sc, *, estimate_extrinsics: bool):

@@ -99,14 +99,13 @@ def _launch(HTH, HTh, P, x: st.NavState, x_prop: st.NavState, R, D):
     dispatch.require(P, "P", shape=(NS, NS))
     xv = st.as_vector(x).to(torch.float32).contiguous()
     xpv = st.as_vector(x_prop).to(torch.float32).contiguous()
-    sc = torch.tensor([1.0 / R, D], dtype=torch.float32, device=dev)
     xn = torch.empty(XF, dtype=torch.float32, device=dev)
     Pf = torch.empty((NS, NS), dtype=torch.float32, device=dev)
     dxo = torch.empty(NS, dtype=torch.float32, device=dev)
     gm = torch.empty(2, dtype=torch.float32, device=dev)
     err = dispatch.library().fl_update_body(
         dispatch.ptr(HTH), dispatch.ptr(HTh), dispatch.ptr(P), dispatch.ptr(xv),
-        dispatch.ptr(xpv), dispatch.ptr(sc), dispatch.ptr(xn), dispatch.ptr(Pf),
+        dispatch.ptr(xpv), 1.0 / float(R), float(D), dispatch.ptr(xn), dispatch.ptr(Pf),
         dispatch.ptr(dxo), dispatch.ptr(gm), dispatch.stream())
     dispatch.check(err, "update_body")
     update_body.launches += 1

@@ -10,7 +10,9 @@ gate, the point-order MAX_NUM_MATCHES cap), the staleness certificates of
 the top-k; cert_b: block crossings keep coverage; the ``cnt < W`` clause),
 the statistics and the iteration body.
 
-``update_loop`` launches ``csrc/update_loop.cu`` on CUDA tensors;
+``update_loop`` launches ``csrc/update_loop.cu`` (one thread-block
+cluster; the scalars 1/R, limit and D by value, so a launch uploads
+nothing and needs no host sync) on CUDA tensors;
 ``update_loop_plain`` runs the same iterations in plain torch.  Both
 compute the chart difference with atan2, so — unlike the TPU kernel's
 atan series — ``ok`` certifies the staleness certificates alone: when it
@@ -190,19 +192,17 @@ def _launch(X, P, x_prop: st.NavState, R, D, limit, *, max_iters: int,
     dispatch.require(X, "X", shape=((5 + 3 * W) * Np,))
     dispatch.require(P, "P", shape=(NS, NS))
     lib = dispatch.library()
-    sc = torch.cat([st.as_vector(x_prop).to(torch.float32),
-                    torch.tensor([1.0 / R, limit, D], dtype=torch.float32).to(dev)])
+    xv = st.as_vector(x_prop).to(torch.float32).contiguous()
     scr = torch.empty(lib.fl_update_loop_scratch(Np), dtype=torch.float32, device=dev)
-    xo = torch.empty(XF, dtype=torch.float32, device=dev)
-    Po = torch.empty((NS, NS), dtype=torch.float32, device=dev)
-    aux = torch.empty(8, dtype=torch.float32, device=dev)
+    out = torch.empty(XF + NS * NS + 8, dtype=torch.float32, device=dev)
+    xo, Po, aux = out[:XF], out[XF:XF + NS * NS].view(NS, NS), out[XF + NS * NS:]
     thr = float(window.plane_threshold)
     err = lib.fl_update_loop(
-        dispatch.ptr(X), Np, dispatch.ptr(P), dispatch.ptr(sc), int(window.k), W,
-        float(window.voxel_size), float(window.max_dist_plane), thr, thr * thr,
-        int(window.max_num_matches), float(window.dynamic_gate), int(max_iters),
-        int(bool(estimate_extrinsics)), dispatch.ptr(scr), dispatch.ptr(xo),
-        dispatch.ptr(Po), dispatch.ptr(aux), dispatch.stream())
+        dispatch.ptr(X), Np, dispatch.ptr(P), dispatch.ptr(xv), 1.0 / float(R), float(limit),
+        float(D), int(window.k), W, float(window.voxel_size), float(window.max_dist_plane),
+        thr, thr * thr, int(window.max_num_matches), float(window.dynamic_gate),
+        int(max_iters), int(bool(estimate_extrinsics)), dispatch.ptr(scr),
+        dispatch.ptr(xo), dispatch.ptr(Po), dispatch.ptr(aux), dispatch.stream())
     dispatch.check(err, "update_loop")
     update_loop.launches += 1
     return st.from_vector(xo), Po, aux

@@ -13,23 +13,31 @@ Phases (each prints its own lines):
               replays the synthetic bench corridor through update_imu /
               update_pointcloud.  Prints the ATE against ground truth (must
               be < 0.15 m), per-scan wall ms p50/p95 after warm-up, the
-              launch count of every kernel (K1, K2, K6 must be > 0; K9
-              exactly twice a scan: the voxel and the insert sort), the
-              loop-fallback count and the host-sync count; one steady scan
-              runs under torch.cuda.set_sync_debug_mode("warn") and its
-              synchronizing calls are listed by source line (none may lie
-              in the K4/K5/K6/K8 wrappers).
-4. fallback — the exact per-iteration update loop (the path taken when the
-              whole-loop kernel's certificates fail) on one captured scan at
-              main-path shapes, plus its stale-patch and full re-match
-              branches: K2 (k=5), K3, K4, K5 must launch; its x/P are
-              compared with the whole-loop kernel's on that scan.
+              launch count of every kernel (K1, K2, K6 and
+              the exact loop's K3/K4/K5, which launch on every scan behind
+              their active flag, must be > 0; K9 exactly twice a scan: the
+              voxel and the insert sort), the loop-fallback count (read
+              from the device after the replay) and the host-read count
+              (must be 0); every steady scan runs under
+              torch.cuda.set_sync_debug_mode("warn") and each synchronizing
+              call is named by the innermost port (fast_limo_tpu_torch/)
+              frame on its stack: none may be named.
+4. fallback — the exact per-iteration update loop (the path selected on
+              the device when the whole-loop kernel's certificates fail) on
+              one captured scan at main-path shapes with no active flag,
+              plus its stale-patch and full re-match fits: K2 (k=5), K3,
+              K4, K5 must launch; its x/P are compared with the whole-loop
+              kernel's on that scan.
 5. kernels  — every kernel's public wrapper against its plain PyTorch
               version on the card, on inputs captured from phases 3-4 and,
               for K8, from phase 8, which therefore runs before this one
-              (K9 on the captured voxel sort, N = 32768, and insert sort,
-              N = 10000: all three outputs bit-equal, with its CUDA
-              launches a call counted by torch.profiler; K8 against its
+              (K2 on the captured window resolve, its plain version the
+              gather of the map rows, then the plain top-k;
+              K9 on the captured voxel sort, N = 32768, and insert sort,
+              N = 10000: all three outputs bit-equal, ONE CUDA kernel a
+              call counted by torch.profiler, both one-call yardsticks —
+              torch.sort of the int32 key with its indices, and of the int64
+              key (k1 << 30) | k2 — timed at both shapes; K8 against its
               plain version gain_math, rtol 1e-3 + 1e-3 of the largest
               entry, and against float64 truth within 12× the float32
               library solve's error + 2e-5 of the largest entry, the rule
@@ -49,8 +57,9 @@ Phases (each prints its own lines):
                   queries at four settings (K2 with V = 8, V = 27, k = 64;
                   K7 at r = 3 m), 256 of them held to a brute force over
                   the stored points; K2 and K7 must launch;
-              (b) K7 and K2 at k = 64 against their plain versions on a
-                  captured chunk (sq/valid bit-equal), with times;
+              (b) K7 and K2 at k = 64 against their
+                  plain versions on a captured chunk (sq/valid bit-equal),
+                  with times: their kernel rows;
               (c) an eviction replay (40 scans, evict_radius 30 m,
                   evict_occupancy 0.002): an eviction must drop the map's
                   point count, ATE < 0.15 m;
@@ -60,7 +69,9 @@ Phases (each prints its own lines):
 7. transfer — the same scans through the bench's other streaming entry
               points: (a) chunked replay (scan_chunk = 4, flush()), poses
               within the JAX package's chunk bounds of phase 3's (pos 3e-4,
-              quat 3e-5, n_pc2match equal); (b) the float32 split transfer
+              quat 3e-5, n_pc2match equal), every chunk after the first
+              under the sync census (no port line may be named); (b) the
+              float32 split transfer
               (quantize_transfer = 0), ATE < 0.15 m; (c) AsyncIngest over a
               fresh Localizer fed by two producer threads, poses equal to
               phase 3's bit for bit; (d) the native int16 packer is the C
@@ -71,9 +82,11 @@ Phases (each prints its own lines):
               every scan's update is the per-iteration loop around the gain
               kernel K8 (chart projection, guard and Joseph covariance in
               plain torch).  K8 must launch (max_iters + 1) times a scan, K5
-              and K6 never; ATE < 0.15 m; the poses within rtol 1e-3 / atol
-              2e-4 (phase 4's bounds) of phase 3's.  Prints per-scan wall
-              p50/p95, host syncs and guard eigh calls beside phase 3's.
+              and K6 never; one host read an evaluation (the guard's
+              Gershgorin bound), no other; ATE < 0.15 m; the poses within
+              rtol 1e-3 / atol 2e-4 (phase 4's bounds) of phase 3's.  Prints
+              per-scan wall p50/p95, host syncs and guard eigh calls beside
+              phase 3's.
 9. slam     — the SLAM engine at the same configuration: (a) the bench's
               soak (bench.py:227-274: 192 scans of a 9 m closed circuit,
               loop closure, keyframe cap 64, eviction armed): at least one
@@ -85,11 +98,14 @@ Phases (each prints its own lines):
               the odometry-only one; (c) the soak's session saved, loaded
               into a fresh SLAM and two later scans relocalized: success,
               within 0.5 m of ground truth at mid-sweep; (d) the CLI
-              in-process, `synthetic --scans 24 --debug-dump … --out …`:
-              its JSON line has ate_m < 0.15 and the dump every DebugOutput
-              field.
-10. result  — the card's name and power limit, the kernels JSON line, then
-              the final status line.
+              in-process, `synthetic --scans 24 --debug-dump … --out …` at
+              the default Config() (cfg.debug on): its JSON line has
+              ate_m < 0.15 and the dump every DebugOutput field, and its
+              scan dispatches after the warm-up run under the sync census
+              (no port line may be named).
+10. result  — the card's name and power limit, the kernels JSON line (K1-K9,
+              K2 twice: the main path's window resolve and the map path's
+              k = 64; K9 twice), then the final status line.
 
 Usage: python3 chip_smoke.py [--scans N] [--profile]
 Exits non-zero on any failed check; there is no CPU path.
@@ -160,20 +176,53 @@ def _device_ms(fn, prefix=None, reps: int = 5):
     return sum(e.self_device_time_total for e in mine) / reps / 1e3
 
 
+_PORT = os.sep + "fast_limo_tpu_torch" + os.sep
+
+
 def _sync_calls(fn):
-    """(fn(), the "file:line" of each synchronizing call it made), run under
-    torch.cuda.set_sync_debug_mode("warn")."""
+    """(fn(), one entry a synchronizing call it made), run under
+    torch.cuda.set_sync_debug_mode("warn").  An entry is the line the
+    warning names (the innermost Python frame, often torch's own code) and,
+    after " <- ", the innermost port (fast_limo_tpu_torch/) frame inside
+    fn on the Python stack when the warning was raised — the port line that
+    led to the sync — where there is one."""
+    import traceback
+
     import torch
 
-    with warnings.catch_warnings(record=True) as caught:
+    caught = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        inside = [i for i, f in enumerate(stack)
+                  if f.name == "_sync_calls"
+                  and os.path.abspath(f.filename) == os.path.abspath(__file__)]
+        stack = stack[inside[-1] + 1 if inside else 0:]
+        port = [f for f in stack if _PORT in f.filename]
+        entry = f"{os.path.relpath(filename)}:{lineno}"
+        if port:
+            entry += f" <- {os.path.relpath(port[-1].filename)}:{port[-1].lineno}"
+        else:   # the calls that led there, outermost first
+            entry += " in " + "/".join(f.name for f in stack if "warnings" not in f.filename)
+        caught.append(entry)
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                 if "synchroniz" in str(w.message)]
+    return out, caught
+
+
+def _port_syncs(entries):
+    """The census entries led to by a port source line."""
+    return [e for e in entries
+            if e.startswith("fast_limo_tpu_torch" + os.sep) or " <- " in e]
 
 
 def _no_sync(name, fn):
@@ -202,15 +251,15 @@ def _nbytes(*objs) -> int:
                else _nbytes(*o) if isinstance(o, (tuple, list)) else 0 for o in objs)
 
 
-def _k2_work(rows, nc, q, out, d2, E):
+def _k2_work(row_idx, nc, q, out, d2, E):
     """K2's data-dependent work: every row's four meta planes, the
-    coordinates of the filled slots of wanted blocks, the outputs; 8
-    operations a distance."""
+    coordinates of the filled slots of wanted blocks, the row indices and
+    the outputs; 8 operations a distance."""
     import torch
 
     n_valid = int(torch.isfinite(d2).sum())
-    N, V, _ = rows.shape
-    return N * V * 4 * E * 4 + 12 * n_valid + _nbytes(nc, q, *out), 8 * n_valid
+    N, V = row_idx.shape
+    return N * V * 4 * E * 4 + 12 * n_valid + _nbytes(row_idx, nc, q, *out), 8 * n_valid
 
 
 def _bound(nbytes: float, ops: float):
@@ -283,8 +332,10 @@ def _profile(torch, Localizer, cfg, stamps, acc, gyro, scans, label: str) -> Non
               f"x{e.count / n:6.1f}  {e.key[:90]}")
     host = [e for e in stats if e.device_type.name == "CPU"]
     n_sync = sum(e.count for e in host if e.key == "cudaStreamSynchronize")
+    n_launch = sum(e.count for e in host if e.key.startswith("cudaLaunchKernel"))
     print(f"[smoke] profile {label}: cudaStreamSynchronize {n_sync / n:.2f} calls a scan "
-          f"({n_sync} in {n} scans)")
+          f"({n_sync} in {n} scans) | kernel launches {n_launch / n:.1f} a scan "
+          f"(cudaLaunchKernel*)")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"[smoke] profile {label} host: {e.self_cpu_time_total / n / 1e3:8.4f} ms/scan "
               f"x{e.count / n:7.1f}  {e.key[:80]}")
@@ -363,7 +414,7 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
         return o_k7(*a, **kw)
 
     def k2_cap(*a, **kw):
-        k2_shapes.append((int(a[0].shape[1]), kw["k"]))
+        k2_shapes.append((int(a[1].shape[1]), kw["k"]))
         if kw["k"] == 64:
             cap.setdefault("k2_64", (a, kw))
         return o_k2(*a, **kw)
@@ -420,24 +471,21 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
            f"{map_counts['masked_topk']} chunks)", launches=map_counts["masked_topk"])
 
     a2, kw2 = cap["k2_64"]
-    g = _once("K2 k=64", knn_rows.topk_from_rows, lambda: knn_rows.topk_from_rows(*a2, **kw2))
-    w = knn_rows.topk_from_rows_reference(*a2, **kw2)
+    a2 = a2[:4]                                   # ptable, row_idx, nc, queries
+    g = _once("K2 k=64", knn_rows.topk_from_table, lambda: knn_rows.topk_from_table(*a2, **kw2))
+    w = knn_rows.topk_from_table_reference(*a2, **kw2)
     if not (torch.equal(g[1], w[1]) and torch.equal(g[2], w[2])):
         _fail("K2 (k = 64) sq/valid differ from the plain version")
     err = _maxerr(g[0][w[2]], w[0][w[2]])
     if err != 0.0:
         _fail(f"K2 (k = 64) neighbours differ where valid: {err:.3e}")
-    d2_2 = knn_rows.candidate_d2(*a2, E=kw2["E"], B=kw2["B"])[0]
-    ms = _time_ms(lambda: knn_rows.topk_from_rows(*a2, **kw2))
-    dms = _device_ms(lambda: knn_rows.topk_from_rows(*a2, **kw2), "fl_knn_rows")
-    pms = _time_ms(lambda: knn_rows.topk_from_rows_reference(*a2, **kw2), reps=3)
-    lms = _time_ms(lambda: torch.topk(d2_2, 64, dim=1, largest=False))
-    ldms = _device_ms(lambda: torch.topk(d2_2, 64, dim=1, largest=False))
-    bms, by = _bound(*_k2_work(*a2, g, d2_2, kw2["E"]))
-    print(f"[smoke] kernel knn_rows (k=64): max_abs_err {err:.3e} | {ms:.4f} ms (device "
-          f"{_fmt(dms)}) vs plain {pms:.4f} ms | bound {bms:.4f} ms ({by}) | one PyTorch call "
-          f"{lms:.4f} ms (device {_fmt(ldms)}) (N={a2[0].shape[0]}, V={a2[0].shape[1]}, k=64)",
-          flush=True)
+    d2_2 = knn_rows.candidate_d2(a2[0][a2[1].long()], *a2[2:], E=kw2["E"], B=kw2["B"])[0]
+    report("knn_rows k=64", err, lambda: knn_rows.topk_from_table(*a2, **kw2),
+           lambda: knn_rows.topk_from_table_reference(*a2, **kw2),
+           *_k2_work(*a2[1:], g, d2_2, kw2["E"]),
+           lambda: torch.topk(d2_2, 64, dim=1, largest=False),
+           f"(radius_search 2.28 m / 64: N={a2[1].shape[0]}, V={a2[1].shape[1]}, k=64)",
+           launches=map_counts["knn_rows"], kernel="knn_rows")
 
     # (c) eviction replay at the bench's soak settings
     seq_e = presets.bench_sequence(n_scans=40)
@@ -502,30 +550,38 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
     os.remove(path)
 
 
-def _cuda_launches(torch, fn, prefix: str):
+def _cuda_launches(torch, fn, prefix: str, tries: int = 3):
     """CUDA kernels named ``prefix*`` that one call of fn() launches, as
-    torch.profiler records them ("not measured" if it records none)."""
+    torch.profiler records them ("not measured" if it records no device
+    event in ``tries`` profiled calls: the profiler on the card has come
+    back empty now and then)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    n = sum(e.count for e in events if e.key.startswith(prefix))
-    return n if events else "not measured"
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if events:
+            return sum(e.count for e in events if e.key.startswith(prefix))
+    return "not measured"
 
 
-def _replay_timed(torch, loc, method, stamps, acc, gyro, scans):
+def _replay_timed(torch, loc, method, stamps, acc, gyro, scans, census=None):
     """Replay in arrival order (then flush), timing each call of
     ``loc.<method>`` on the host between two synchronises; returns
-    [(ms, scans in the call)]."""
+    [(ms, scans in the call)].  With a ``census`` list, every call after
+    the first runs under the sync census and its entries are added."""
     times, orig = [], getattr(loc, method)
 
     def timed(arg):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        orig(arg)
+        if census is not None and times:
+            census.extend(_sync_calls(lambda: orig(arg))[1])
+        else:
+            orig(arg)
         torch.cuda.synchronize()
         times.append((1e3 * (time.perf_counter() - t), len(arg) if isinstance(arg, list) else 1))
 
@@ -556,7 +612,8 @@ def _transfer_phase(dev, cfg, seq, loc1, stamps, acc, gyro, scans, scan_ms):
     cfg4 = copy.deepcopy(cfg)
     cfg4.tpu.scan_chunk = 4
     loc4 = Localizer(cfg4, device=dev)
-    chunk_ms = _replay_timed(torch, loc4, "_dispatch_chunk", stamps, acc, gyro, scans)
+    census4 = []
+    chunk_ms = _replay_timed(torch, loc4, "_dispatch_chunk", stamps, acc, gyro, scans, census4)
     t4 = loc4.trajectory
     if len(t4) != len(t1):
         _fail(f"chunked replay has {len(t4)} poses, the one-scan path {len(t1)}")
@@ -568,6 +625,12 @@ def _transfer_phase(dev, cfg, seq, loc1, stamps, acc, gyro, scans, scan_ms):
           f"{'equal' if same_n else 'DIFFER'}", flush=True)
     if not (dpos <= 3e-4 and dquat <= 3e-5 and same_n):
         _fail("chunked replay departs from the one-scan path beyond pos 3e-4 / quat 3e-5")
+    sites4 = {f: census4.count(f) for f in sorted(set(census4))}
+    print(f"[smoke] transfer: (a) scan_chunk 4, the {len(chunk_ms) - 1} chunks after the first "
+          f"under set_sync_debug_mode(\"warn\"): {len(census4)} synchronizing calls "
+          f"{json.dumps(sites4)}", flush=True)
+    if _port_syncs(census4):
+        _fail(f"the chunk step synchronized the host at port lines {_port_syncs(census4)}")
 
     # (b) the float32 split transfer
     cfgf = copy.deepcopy(cfg)
@@ -691,6 +754,9 @@ def _split_phase(dev, cfg, seq, loc1, stamps, acc, gyro, scans, scan_ms, counts,
         _fail("split body: n_iters outside 1 … max_iters + 1")
     if c["update_body"] or c["update_loop"]:
         _fail(f"split body launched K5 {c['update_body']} / K6 {c['update_loop']} times")
+    if iekf.counters.host_syncs != evals * updated:
+        _fail(f"split body: {iekf.counters.host_syncs} host reads, want one guard bound an "
+              f"evaluation ({evals * updated})")
     for name in ("deskew", "knn_rows", "fit_planes", "hstats", "sort3"):
         if c[name] <= 0:
             _fail(f"kernel {name} did not launch on the split-body path")
@@ -842,12 +908,28 @@ def _slam_phase(dev, cfg, counts, zero):
     if not (rmse["gps"][2] > 0 and rmse["gps"][0] < rmse["odo"][0]):
         _fail("GPS priors did not lower the corridor's keyframe RMSE")
 
-    # (d) the CLI, in-process
+    # (d) the CLI, in-process, at the default Config() (cfg.debug on); every
+    # scan dispatch after the warm-up runs under the sync census
+    from fast_limo_tpu_torch.models.localizer import Localizer
+
     out_path = os.path.join(dispatch.BUILD_DIR, "smoke_cli.tum")
     dump_path = os.path.join(dispatch.BUILD_DIR, "smoke_cli_debug.npz")
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["synthetic", "--scans", "24", "--debug-dump", dump_path, "--out", out_path])
+    buf, census, seen = io.StringIO(), [], []
+    o_dispatch = Localizer._dispatch
+
+    def dispatch_census(self, scan):
+        seen.append(bool(self.cfg.debug))
+        if len(seen) <= WARMUP:
+            return o_dispatch(self, scan)
+        census.extend(_sync_calls(lambda: o_dispatch(self, scan))[1])
+
+    Localizer._dispatch = dispatch_census
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["synthetic", "--scans", "24", "--debug-dump", dump_path,
+                           "--out", out_path])
+    finally:
+        Localizer._dispatch = o_dispatch
     lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
     if rc or not lines:
         _fail(f"the CLI returned {rc} and printed no JSON line")
@@ -862,6 +944,14 @@ def _slam_phase(dev, cfg, counts, zero):
           flush=True)
     if missing or not (info["scans"] == 24 and info["ate_m"] < 0.15 and n_tum == 24):
         _fail(f"CLI run: {info}, {n_tum} TUM lines, missing debug fields {missing}")
+    sites = {f: census.count(f) for f in sorted(set(census))}
+    print(f"[smoke] slam: (d) CLI dispatches after the first {WARMUP} ({len(seen) - WARMUP}, "
+          f"cfg.debug {all(seen)}) under set_sync_debug_mode(\"warn\"): {len(census)} "
+          f"synchronizing calls {json.dumps(sites)}", flush=True)
+    if not all(seen) or len(seen) <= WARMUP:
+        _fail(f"the CLI dispatched {len(seen)} scans, cfg.debug {set(seen)}")
+    if _port_syncs(census):
+        _fail(f"the CLI's step synchronized the host at port lines {_port_syncs(census)}")
     os.remove(out_path)
     os.remove(dump_path)
 
@@ -917,7 +1007,7 @@ def main() -> None:
     wrappers = {
         "deskew": (deskew_kernel.deskew, "fast_limo_tpu_torch/csrc/deskew.cu",
                    "fast_limo_tpu/ops/deskew_kernel.py:149"),
-        "knn_rows": (knn_rows.topk_from_rows, "fast_limo_tpu_torch/csrc/knn_rows.cu",
+        "knn_rows": (knn_rows.topk_from_table, "fast_limo_tpu_torch/csrc/knn_rows.cu",
                      "fast_limo_tpu/ops/knn_rows.py:107"),
         "fit_planes": (plane_kernel.fit_planes, "fast_limo_tpu_torch/csrc/plane.cu",
                        "fast_limo_tpu/ops/plane_kernel.py:193"),
@@ -961,14 +1051,17 @@ def main() -> None:
     orig_knn = knn_rows._launch
     orig_loop = update_loop._launch
     orig_sort = sort._launch
+    census = []   # the synchronizing calls of every steady scan, by source line
 
     def dispatch_timed(scan):
         capturing = len(scan_ms) == capture_at
         cap["on"] = capturing
+        if len(scan_ms) == WARMUP:   # the fallbacks before the census (a read, outside it)
+            cap["fb_warm"] = iekf.counters.loop_fallbacks
         torch.cuda.synchronize()
         t = time.perf_counter()
-        if capturing:   # the steady scan's synchronizing calls, by source line
-            cap["syncs"] = _sync_calls(lambda: orig_dispatch(scan))[1]
+        if len(scan_ms) >= WARMUP:
+            census.extend(_sync_calls(lambda: orig_dispatch(scan))[1])
         else:
             orig_dispatch(scan)
         torch.cuda.synchronize()
@@ -986,10 +1079,10 @@ def main() -> None:
             cap["deskew"] = a
         return orig_deskew(*a)
 
-    def knn_capture(rows, nc, q, **kw):
-        if cap.get("on") and "knn" not in cap:
-            cap["knn"] = (rows, nc, q, kw)
-        return orig_knn(rows, nc, q, **kw)
+    def knn_capture(ptable, row_idx, nc, q, active, **kw):
+        if cap.get("on") and "knn" not in cap:   # the window resolve
+            cap["knn"] = (ptable, row_idx, nc, q, kw)
+        return orig_knn(ptable, row_idx, nc, q, active, **kw)
 
     def sort_capture(*a):
         if cap.get("on"):
@@ -1011,6 +1104,10 @@ def main() -> None:
     update_loop._launch = loop_capture
     sort._launch = sort_capture
 
+    # the census of a call that does nothing: what the census itself shows
+    empty = _sync_calls(lambda: None)[1]
+    print(f"[smoke] main: the sync census of an empty call: {len(empty)} synchronizing calls "
+          f"{json.dumps(empty)}", flush=True)
     for w in wrappers.values():
         w[0].launches = 0
     iekf.counters.host_syncs = iekf.counters.loop_fallbacks = 0
@@ -1045,21 +1142,26 @@ def main() -> None:
           flush=True)
     if not ate < 0.15:
         _fail(f"ATE {ate:.4f} m >= 0.15 m")
-    for name in ("deskew", "knn_rows", "update_loop"):
+    # the exact loop's kernels launch on every scan behind their active flag
+    for name in ("deskew", "knn_rows", "fit_planes", "hstats", "update_body", "update_loop"):
         if main_counts[name] <= 0:
             _fail(f"kernel {name} did not launch on the main path")
     if main_counts["sort3"] != 2 * args.scans:
         _fail(f"K9 launched {main_counts['sort3']} times in {args.scans} scans, not twice a scan")
-    for key in ("h_model", "deskew", "knn", "loop", "loop_out", "sort", "syncs"):
+    if syncs:
+        _fail(f"the main path read the device {syncs} times (iekf.counters.host_syncs)")
+    for key in ("h_model", "deskew", "knn", "loop", "loop_out", "sort"):
         if key not in cap:
             _fail(f"capture of scan {capture_at} missed {key}")
-    sites = {f: cap["syncs"].count(f) for f in sorted(set(cap["syncs"]))}
-    print(f"[smoke] main: scan {capture_at} under set_sync_debug_mode(\"warn\"): "
-          f"{len(cap['syncs'])} synchronizing calls {json.dumps(sites)}", flush=True)
-    wrapped = [f for f in sites if os.path.basename(f) in
-               ("update_loop.py", "hstats.py", "update_body.py", "gain.py")]
-    if wrapped:
-        _fail(f"a kernel wrapper synchronized the host: {wrapped}")
+    sites = {f: census.count(f) for f in sorted(set(census))}
+    n_steady = args.scans - WARMUP
+    fb_steady = fallbacks - cap.get("fb_warm", fallbacks)
+    print(f"[smoke] main: the {n_steady} steady scans ({fb_steady} of them fell "
+          f"back to the exact loop) under set_sync_debug_mode(\"warn\"): {len(census)} "
+          f"synchronizing calls ({len(census) / n_steady:.2f} a scan) {json.dumps(sites)}",
+          flush=True)
+    if _port_syncs(census):
+        _fail(f"the scan step synchronized the host at port lines {_port_syncs(census)}")
 
     # ---- 4. fallback path on the captured scan ----
     h = cap["h_model"]
@@ -1071,17 +1173,17 @@ def main() -> None:
     cap3 = {}
     o_fit, o_hs, o_ub = plane_kernel._launch, hstats._launch, update_body._launch
 
-    def fit_cap(*a, **kw):
-        cap3.setdefault("fit", (a, kw))
-        return o_fit(*a, **kw)
+    def fit_cap(nbrs, sq, valid, active, **kw):
+        cap3.setdefault("fit", ((nbrs, sq, valid), kw))
+        return o_fit(nbrs, sq, valid, active, **kw)
 
-    def hs_cap(*a, **kw):
-        cap3.setdefault("hstats", (a, kw))
-        return o_hs(*a, **kw)
+    def hs_cap(X, sc, active, **kw):
+        cap3.setdefault("hstats", ((X, sc), kw))
+        return o_hs(X, sc, active, **kw)
 
-    def ub_cap(*a, **kw):
-        cap3.setdefault("body", (a, kw))
-        return o_ub(*a, **kw)
+    def ub_cap(*a):
+        cap3.setdefault("body", (a[:7], {}))
+        return o_ub(*a)
 
     plane_kernel._launch, hstats._launch, update_body._launch = fit_cap, hs_cap, ub_cap
     x_f, P_f, n_f = iekf.update_iterated(
@@ -1090,8 +1192,9 @@ def main() -> None:
     ranked = h._window_rank(glob0)
     stale = torch.zeros_like(h.pc_valid)
     stale[: h.budget] = True
-    h._patched_match(glob0, ranked, stale & h.pc_valid)
-    h._match(glob0)
+    rows0 = h._rows(glob0)
+    h._patched_fit(glob0, rows0, h._window_fit(ranked), stale & h.pc_valid)
+    h._full_fit(glob0, rows0)
     torch.cuda.synchronize()
     plane_kernel._launch, hstats._launch, update_body._launch = o_fit, o_hs, o_ub
     fb_counts = counts()
@@ -1116,14 +1219,14 @@ def main() -> None:
     rows_out = []
 
     def report(name, err, k_fn, p_fn, nbytes, ops, lib_fn=None, extra="", launches=None,
-               kernel=None):
+               kernel=None, prefix=None):
         """A kernel row: CUDA-event times through the wrapper (ms) and of the
         plain version, the kernel's own device time (device_ms, torch.profiler
         matched by kernel name over as many reps), the bound, and the one
         PyTorch call's event and device times."""
         kernel = kernel or name
         ms, pms = _time_ms(k_fn), _time_ms(p_fn, reps=3)
-        dms = _device_ms(k_fn, "fl_" + kernel)
+        dms = _device_ms(k_fn, prefix or "fl_" + kernel)
         lms = _time_ms(lib_fn) if lib_fn is not None else None
         ldms = _device_ms(lib_fn) if lib_fn is not None else None
         bms, by = _bound(nbytes, ops)
@@ -1156,22 +1259,27 @@ def main() -> None:
     report("deskew", err, k1, k1_plain, _nbytes(pts, t_pts, valid, *a), 140 * int(valid.sum()),
            extra=f"(N={pts.shape[0]})")
 
-    # K2 knn_rows — sq and valid bit-equal, nbrs equal where finite
-    rows, nc, q, kw = cap["knn"]
-    a = _once("K2", knn_rows.topk_from_rows,
-              lambda: knn_rows.topk_from_rows(rows, nc, q, **kw))
-    b = knn_rows.topk_from_rows_reference(rows, nc, q, **kw)
+    # K2 at the main path's window resolve — sq and valid bit-equal to the
+    # plain version (the gather, then the plain top-k), nbrs equal where finite
+    ptab, ridx, nc, q, kw = cap["knn"]
+
+    def k2t():
+        return knn_rows.topk_from_table(ptab, ridx, nc, q, **kw)
+
+    a = _once("K2", knn_rows.topk_from_table, k2t)
+    b = knn_rows.topk_from_table_reference(ptab, ridx, nc, q, **kw)
     if not (torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])):
-        _fail(f"K2 sq/valid differ from the plain version (max {_maxerr(a[1][b[2]], b[1][b[2]]):.3e})")
+        _fail(f"K2 sq/valid differ from the plain version "
+              f"(max {_maxerr(a[1][b[2]], b[1][b[2]]):.3e})")
     err = _maxerr(a[0][b[2]], b[0][b[2]])
     if err != 0.0:
         _fail(f"K2 neighbours differ where distances are finite: {err:.3e}")
-    d2_k2 = knn_rows.candidate_d2(rows, nc, q, E=kw["E"], B=kw["B"])[0]
-    nb2, ops2 = _k2_work(rows, nc, q, a, d2_k2, kw["E"])
-    report("knn_rows", err, lambda: knn_rows.topk_from_rows(rows, nc, q, **kw),
-           lambda: knn_rows.topk_from_rows_reference(rows, nc, q, **kw), nb2, ops2,
+    d2_k2 = knn_rows.candidate_d2(ptab[ridx.long()], nc, q, E=kw["E"], B=kw["B"])[0]
+    nb2, ops2 = _k2_work(ridx, nc, q, a, d2_k2, kw["E"])
+    report("knn_rows", err, k2t,
+           lambda: knn_rows.topk_from_table_reference(ptab, ridx, nc, q, **kw), nb2, ops2,
            lambda: torch.topk(d2_k2, kw["k"], dim=1, largest=False),
-           f"(N={q.shape[0]}, V={rows.shape[1]}, k={kw['k']})")
+           f"(N={q.shape[0]}, V={ridx.shape[1]}, k={kw['k']})")
 
     # K3 fit_planes — gates agree on ≥ 99.5 %; rtol 5e-3 / atol 5e-4 where both good
     fa, fkw = cap3["fit"]
@@ -1289,8 +1397,10 @@ def main() -> None:
 
     # K9 sort3 — all three outputs bit-equal to the plain version, on the
     # voxel sort (N = 32768) and the insert sort (N = 10000) of the
-    # captured scan; one PyTorch call: the stable int64 packed-key sort the
-    # port ran before K9
+    # captured scan, ONE CUDA kernel a call; one PyTorch call for the same
+    # function: the voxel sort is torch.sort of the int32 key with its
+    # indices (sort_key_val), the insert sort the stable sort of the int64
+    # key (k1 << 30) | k2 — both are timed at both shapes
     sorts = {int(c[0].shape[0]): c for c in cap["sort"]}
     n_vox, n_ins = cfg.tpu.max_points_per_scan, cfg.tpu.max_insert_points
     if len(cap["sort"]) != 2 or set(sorts) != {n_vox, n_ins}:
@@ -1303,11 +1413,18 @@ def main() -> None:
         for i, (g, w) in enumerate(zip(a, b)):
             if not torch.equal(g, w):
                 _fail(f"K9 ({what}) output {i} differs from the plain version")
-        packed = (k1.long() << 30) | k2.long() if what == "insert" else k1.long()
+        packed = (k1.long() << 30) | k2.long()
+        calls = {"voxel": lambda: torch.sort(k1, stable=True),
+                 "insert": lambda: torch.sort(packed, stable=True)}
+        other = "insert" if what == "voxel" else "voxel"
+        oms, odms = _time_ms(calls[other]), _device_ms(calls[other])
         n_cuda = _cuda_launches(torch, lambda: sort.sort3(k1, k2, v), "fl_sort3")
+        if n_cuda != 1:
+            _fail(f"K9 ({what}) ran {n_cuda} CUDA kernels a call, not one")
         report(name, 0.0, lambda: sort.sort3(k1, k2, v), lambda: sort.sort3_plain(k1, k2, v),
-               24 * k1.shape[0], 0, lambda: torch.sort(packed, stable=True),
-               f"(N={k1.shape[0]}, {what} sort, {n_cuda} CUDA launches a call)", kernel="sort3")
+               24 * k1.shape[0], 0, calls[what],
+               f"(N={k1.shape[0]}, {what} sort, {n_cuda} CUDA kernel a call; the {other} "
+               f"sort's one call here {oms:.4f} ms (device {_fmt(odms)}))", kernel="sort3")
     torch.cuda.synchronize()
 
     # ---- 6. map: the long-session surface ----

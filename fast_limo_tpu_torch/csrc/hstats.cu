@@ -12,6 +12,14 @@
 // distributed shared memory — and rank 0 writes the result.  No scratch,
 // no second kernel, no atomics: bit-reproducible run to run.  Serves the
 // exact per-iteration fallback loop (measurement.h_stats).
+//
+// `active` (optional, one byte on the device): when set and 0, every block
+// of the cluster reads it before its first load and before any cluster
+// barrier, so all of them return together and none waits at a barrier
+// that another skips; `out` then keeps whatever its allocation held.  The
+// exact update loop launches K4 on every scan with such a flag and
+// discards the output of a clear flag with a torch.where, so it is never
+// read.
 #include "hstats.cuh"
 
 #define FL_HS_THREADS 256
@@ -19,8 +27,9 @@
 
 __global__ void __launch_bounds__(FL_HS_THREADS)
 fl_hstats_kernel(const float* __restrict__ X, int Np, const float* __restrict__ sc, int ee,
-                 float* __restrict__ out) {
+                 const uint8_t* __restrict__ active, float* __restrict__ out) {
   __shared__ FlStatsRed<FL_HS_THREADS / 32> red;
+  if (active != nullptr && *active == 0) return;   // the same byte for every block
   const FlPose s = fl_pose(sc);
   float acc[FL_NSTAT];
 #pragma unroll
@@ -39,11 +48,11 @@ fl_hstats_kernel(const float* __restrict__ X, int Np, const float* __restrict__ 
 }
 
 // out: 156 floats (HᵀH 144, Hᵀh 12)
-extern "C" int fl_hstats(const float* X, int Np, const float* sc, int ee, float* out,
-                         cudaStream_t stream) {
+extern "C" int fl_hstats(const float* X, int Np, const float* sc, int ee, const uint8_t* active,
+                         float* out, cudaStream_t stream) {
   FlClusterLaunch L(FL_HS_CLUSTER, FL_HS_THREADS, stream);
   static const cudaError_t fits = fl_cluster_fits(fl_hstats_kernel, &L.cfg);
   if (fits != cudaSuccess) return (int)fits;
-  cudaError_t e = cudaLaunchKernelEx(&L.cfg, fl_hstats_kernel, X, Np, sc, ee, out);
+  cudaError_t e = cudaLaunchKernelEx(&L.cfg, fl_hstats_kernel, X, Np, sc, ee, active, out);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

@@ -10,6 +10,12 @@
 // the 6×6 Jacobi sweeps to one thread.  Unlike the TPU kernel, the chart
 // difference dx = x ⊟ x_prop is computed in-kernel with atan2f.  Serves
 // the exact per-iteration fallback loop (iekf.update_iterated).
+//
+// `active` (optional, one byte on the device): when set and 0, the block
+// returns before any load and the outputs keep whatever their allocation
+// held.  The exact update loop launches K5 on every scan with such a flag
+// (K6's certificates failed) and discards the outputs of a clear flag with
+// a torch.where, so they are never read.
 #include "iter_body.cuh"
 
 #define FL_UB_THREADS 256
@@ -18,9 +24,11 @@ __global__ void __launch_bounds__(FL_UB_THREADS)
 fl_update_body_kernel(const float* __restrict__ HTH, const float* __restrict__ HTh,
                       const float* __restrict__ P, const float* __restrict__ x,
                       const float* __restrict__ x_prop, float inv_R, float D,
-                      float* __restrict__ xn, float* __restrict__ Pf,
+                      const uint8_t* __restrict__ active, float* __restrict__ xn,
+                      float* __restrict__ Pf,
                       float* __restrict__ dxo, float* __restrict__ gm) {
   __shared__ FlIterWS w;
+  if (active != nullptr && *active == 0) return;
   const int tid = threadIdx.x;
   for (int i = tid; i < FL_NS * FL_NS; i += blockDim.x) w.P[i] = P[i];
   for (int i = tid; i < FL_M * FL_M; i += blockDim.x) w.g.HTH[i] = HTH[i];
@@ -38,8 +46,9 @@ fl_update_body_kernel(const float* __restrict__ HTH, const float* __restrict__ H
 
 extern "C" int fl_update_body(const float* HTH, const float* HTh, const float* P,
                               const float* x, const float* x_prop, float inv_R, float D,
-                              float* xn, float* Pf, float* dxo, float* gm, cudaStream_t stream) {
-  fl_update_body_kernel<<<1, FL_UB_THREADS, 0, stream>>>(HTH, HTh, P, x, x_prop, inv_R, D, xn,
-                                                         Pf, dxo, gm);
+                              const uint8_t* active, float* xn, float* Pf, float* dxo,
+                              float* gm, cudaStream_t stream) {
+  fl_update_body_kernel<<<1, FL_UB_THREADS, 0, stream>>>(HTH, HTh, P, x, x_prop, inv_R, D,
+                                                         active, xn, Pf, dxo, gm);
   return (int)cudaGetLastError();
 }

@@ -9,9 +9,12 @@ documented divergence from the reference's sign-dependent row quirk);
 convergence is tested on the pre-guard update.
 
 ``update_iterated`` runs the whole-loop kernel K6 when the measurement
-model exposes a window pack, reads its ``ok`` flag on the host (one sync
-per scan) and, when a staleness certificate failed, re-runs the exact
-per-iteration loop through the K4 statistics and K5 body kernels.
+model exposes a window pack, then the exact per-iteration loop (the K2/K3
+re-match, the K4 statistics and the K5 body) on fixed shapes with
+``need = ~ok`` as its kernels' active flag, and selects K6's result or the
+loop's with ``torch.where`` — the value ``lax.cond(ok, …)`` gives in the
+JAX package, with no host read: where K6's certificates hold, the loop's
+kernels return at their first instruction and its glue is discarded.
 
 ``split_body=True`` is the JAX package's program with its fused body off
 (there an environment lever, here an argument): every scan runs the
@@ -36,16 +39,35 @@ M_OBS = 12
 
 
 class SyncCounter:
-    """Host reads of device values on the scan path (each one a sync)."""
+    """Host reads of device values on the scan path (each one a sync: only
+    the split body's guard makes them), and the scans whose whole-loop
+    kernel failed a certificate."""
 
     def __init__(self):
         self.host_syncs = 0
-        self.loop_fallbacks = 0
         self.guard_eighs = 0      # split body: 6×6 eigh calls of the guard
+        self._fallbacks = {}      # device → () int32 count, added to on the device
 
     def read(self, t) -> float:
         self.host_syncs += 1
         return float(t)
+
+    def add_fallbacks(self, need) -> None:
+        """Count ``need`` (() bool) on its device, without a host read."""
+        n = self._fallbacks.get(need.device)
+        self._fallbacks[need.device] = need.to(torch.int32) if n is None else n + need
+
+    @property
+    def loop_fallbacks(self) -> int:
+        """The count so far, read from the device when a caller asks (a
+        host sync; never in the step).  Assigning 0 resets it."""
+        return sum(int(n) for n in self._fallbacks.values())
+
+    @loop_fallbacks.setter
+    def loop_fallbacks(self, value: int) -> None:
+        if value != 0:
+            raise ValueError("loop_fallbacks can only be reset to 0")
+        self._fallbacks = {}
 
 
 counters = SyncCounter()
@@ -224,41 +246,40 @@ def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
                     with_diag: bool = False):
     """Iterated dynamic-share update (esekfom.hpp:1620-1823).
 
-    ``h_model.stats(x) -> (HᵀH, Hᵀh)`` re-matches at the iterate.  With a
-    window pack (``h_model.loop_pack``) the whole loop is ONE K6 launch;
-    its ``ok`` is read on the host and, when False, the exact per-
-    iteration loop re-runs (K4 statistics + K5 body per iteration; the
-    re-match itself re-gathers the stale queries).  With ``split_body``
-    the per-iteration loop runs for every scan with ``_body_jnp`` (K8) as
-    its body and K5/K6 never launch.  Returns (x', P', n_iters); with
-    ``with_diag`` additionally ``{"gersh_min", "min_eig", "guard_fired",
-    "loop_fallback"}``: the minimum Gershgorin bound on HᵀH's pose block
-    and its exact minimum eigenvalue over the iterations (+inf where the
-    split body's bound certified it ≥ D), whether the degeneracy guard
-    zeroed directions, and whether K6's certificates failed.
+    ``h_model.stats(x, active) -> (HᵀH, Hᵀh)`` re-matches at the iterate.
+    With a window pack (``h_model.loop_pack``) the whole loop is ONE K6
+    launch; the exact per-iteration loop (K2/K3 re-match + K4 statistics +
+    K5 body per iteration) then runs on the same fixed shapes with
+    ``need = ~ok`` as its kernels' active flag, and each result field is
+    ``torch.where(ok, K6's, the loop's)``: nothing is read on the host.
+    With ``split_body`` the per-iteration loop runs for every scan with
+    ``_body_jnp`` (K8) as its body and K5/K6 never launch.  Returns (x',
+    P', n_iters); with ``with_diag`` additionally ``{"gersh_min",
+    "min_eig", "guard_fired", "loop_fallback"}``: the minimum Gershgorin
+    bound on HᵀH's pose block and its exact minimum eigenvalue over the
+    iterations (+inf where the split body's bound certified it ≥ D),
+    whether the degeneracy guard zeroed directions, and whether K6's
+    certificates failed (``need`` itself).
     """
     from fast_limo_tpu_torch.ops import update_body, update_loop
 
     def diag(g, me, fb):
-        return {"gersh_min": g, "min_eig": me, "guard_fired": me < D,
-                "loop_fallback": torch.as_tensor(fb, device=P.device)}
+        return {"gersh_min": g, "min_eig": me, "guard_fired": me < D, "loop_fallback": fb}
 
     x_prop, P_prop = x, P
+    dev = P.device
     loop_pack = None if split_body else getattr(h_model, "loop_pack", None)
-    fell_back = False
+    need = None
     if loop_pack is not None:
         xk, Pk, nit_k, ok, g_k, me_k = update_loop.update_loop(
             loop_pack, P_prop, x_prop, R, D, limit, max_iters=max_iters,
             estimate_extrinsics=h_model.estimate_extrinsics,
             window=h_model.loop_window)
-        if counters.read(ok):
-            return (xk, Pk, nit_k, diag(g_k, me_k, False)) if with_diag else (xk, Pk, nit_k)
-        counters.loop_fallbacks += 1
-        fell_back = True
+        need = ~ok
+        counters.add_fallbacks(need)
 
     # exact per-iteration loop: i = −1 … max_iters−1 (max_iters+1 bodies),
     # finished iterations are masked exactly like the JAX unrolled loop
-    dev = P.device
     xc, Pc = x, P
     t = torch.zeros((), dtype=torch.int32, device=dev)
     i = torch.full((), -1, dtype=torch.int32, device=dev)
@@ -266,13 +287,13 @@ def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
     inf = torch.full((), float("inf"), dtype=P.dtype, device=dev)
     g_min, me_min = inf, inf
     for _ in range(max_iters + 1):
-        HTH, HTh = h_model.stats(xc)
+        HTH, HTh = h_model.stats(xc) if need is None else h_model.stats(xc, active=need)
         if split_body:
             x_next, P_fin, dx_, me = _body_jnp(xc, x_prop, P_prop, HTH, HTh, R, D)
             gm = _gersh_min(HTH) if with_diag else None
         else:
             x_next, P_fin, dx_, gm, me = update_body.update_body(
-                HTH, HTh, P_prop, xc, x_prop, R, D)
+                HTH, HTh, P_prop, xc, x_prop, R, D, active=need)
         t_next = t + torch.all(torch.abs(dx_) <= limit).to(torch.int32)
         done_now = (t_next > 1) | (i == max_iters - 1)
         keep = done
@@ -284,6 +305,13 @@ def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
             g_min = torch.where(keep, g_min, torch.minimum(g_min, gm))
             me_min = torch.where(keep, me_min, torch.minimum(me_min, me))
         done = done | done_now
-    if with_diag:
-        return xc, Pc, i + 1, diag(g_min, me_min, fell_back)
-    return xc, Pc, i + 1
+    n_it = i + 1
+    if need is None:
+        out = (xc, Pc, n_it)
+        fb = torch.zeros((), dtype=torch.bool, device=dev)
+    else:   # lax.cond(ok, K6, loop), field by field
+        out = (st.where(ok, xk, xc), torch.where(ok, Pk, Pc), torch.where(ok, nit_k, n_it))
+        if with_diag:
+            g_min, me_min = torch.where(ok, g_k, g_min), torch.where(ok, me_k, me_min)
+        fb = need
+    return (*out, diag(g_min, me_min, fb)) if with_diag else out

@@ -48,17 +48,28 @@ def _planar_width(bucket: int) -> int:
     return SUB * _sub_width(bucket)
 
 
-def _corners(device):
-    return torch.tensor([[dx, dy, dz] for dx in (0, 1) for dy in (0, 1)
-                         for dz in (0, 1)], dtype=torch.int64, device=device)
+# block-offset tables, built once per (radius, device): an upload from a
+# host list on every scan would block the host
+_OFFSETS = {}
 
 
-def _block_offsets(mb: int, device):
+def _block_offsets(mb: int, device, lo: int = None):
     """((2mb+1)³, 3) block offsets in [-mb, mb]³, x-major (mb = 1 is the
-    JAX package's ``_BLOCK_OFFSETS27``)."""
-    r = range(-mb, mb + 1)
-    return torch.tensor([[dx, dy, dz] for dx in r for dy in r for dz in r],
-                        dtype=torch.int64, device=device)
+    JAX package's ``_BLOCK_OFFSETS27``); with ``lo = 0`` the 8 corners
+    {0, 1}³ (mb = 1)."""
+    lo = -mb if lo is None else lo
+    key = (mb, lo, torch.device(device))
+    t = _OFFSETS.get(key)
+    if t is None:
+        r = range(lo, mb + 1)
+        t = torch.tensor([[dx, dy, dz] for dx in r for dy in r for dz in r],
+                         dtype=torch.int64, device=device)
+        _OFFSETS[key] = t
+    return t
+
+
+def _corners(device):
+    return _block_offsets(1, device, lo=0)
 
 
 class VoxelHashMap(NamedTuple):
@@ -264,8 +275,9 @@ def insert(m: VoxelHashMap, pts, valid, *, voxel_size: float) -> VoxelHashMap:
                         (m.num_points + total).to(torch.int32), m.last_time)
 
 
-def gather_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: int = 8):
-    """The kNN gather: ``(rows (N,V,WP) f32, ncb (N,V,3) int32 block coords)``.
+def block_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: int = 8):
+    """The kNN gather's table rows: ``(row_idx (N,V) int32 rows of
+    m.ptable, ncb (N,V,3) int32 block coords)``.
 
     ``neighborhood`` 4, 8 and 27 all take the 8 blocks {b0, b0+1}³,
     b0 = floor((v−1)/2), which span the query's 27-voxel cube (coverage
@@ -278,8 +290,14 @@ def gather_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: in
         ncb = block_coords(qc)[:, None, :] + _block_offsets(1, queries.device)[None]
     else:
         ncb = ((qc - 1) >> 1)[:, None, :] + _corners(queries.device)[None]
-    rows = m.ptable[_hash(ncb, m.groups)]
-    return rows, ncb.to(torch.int32)
+    return _hash(ncb, m.groups).to(torch.int32), ncb.to(torch.int32)
+
+
+def gather_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: int = 8):
+    """The kNN gather: ``(rows (N,V,WP) f32, ncb (N,V,3) int32 block
+    coords)``, the rows of ``block_rows`` materialised."""
+    row_idx, ncb = block_rows(m, queries, voxel_size=voxel_size, neighborhood=neighborhood)
+    return m.ptable[row_idx.long()], ncb
 
 
 def cands_from_rows(rows, ncb, bucket: int):
@@ -321,9 +339,10 @@ def topk_from_candidates(cand_pts, cand_valid, queries, *, k: int):
 
 
 def knn(m: VoxelHashMap, queries, *, voxel_size: float, k: int, neighborhood: int = 8):
-    """Bounded kNN over the block neighborhood: gather, then K2."""
-    rows, ncb = gather_rows(m, queries, voxel_size=voxel_size, neighborhood=neighborhood)
-    return knn_rows.topk_from_rows(rows, ncb, queries, E=E, B=m.bucket, k=k)
+    """Bounded kNN over the block neighborhood: K2 on the table rows of
+    ``block_rows`` (the rows are not gathered)."""
+    row_idx, ncb = block_rows(m, queries, voxel_size=voxel_size, neighborhood=neighborhood)
+    return knn_rows.topk_from_table(m.ptable, row_idx, ncb, queries, E=E, B=m.bucket, k=k)
 
 
 def evict_far(m: VoxelHashMap, center, radius: float, *, voxel_size: float) -> VoxelHashMap:

@@ -11,14 +11,17 @@ The whole loop over the window runs in the K6 kernel (``loop_pack``); the
 exact per-iteration path here (``stats``) is its fallback: window match
 when no query is stale, the stale queries re-resolved in a patch of at
 most ``stale_budget`` queries (K2 at k, K3), or a full re-match.  The
-branch is chosen on the host from the stale count (one sync per call).
+branch is chosen on the device from the stale count: all three run on
+fixed shapes, their kernels behind active flags, and ``torch.where`` keeps
+the chosen one (``_rematch_counted``).  K2 runs on the map table's rows by
+index (``knn_rows.topk_from_table``), so no block-row gather is
+materialised.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fast_limo_tpu_torch.models import iekf
 from fast_limo_tpu_torch.models import mapper as mp
 from fast_limo_tpu_torch.models import state as st
 from fast_limo_tpu_torch.ops import hstats as hstats_op
@@ -51,14 +54,14 @@ class HModel:
         self.estimate_extrinsics = bool(estimate_extrinsics)
         self.dynamic_gate = float(dynamic_gate)
         self.budget = min(int(stale_budget), int(pc.shape[0]))
-        self.last_branch = None
+        self._viol = None         # the last re-match's stale count
 
         # ---- ONE frozen resolve at the predicted pose ----
         W = window_size(k)
         self.W = W
         glob0 = so3.quat_rotate(x0.rot, pc) + x0.pos
         self.glob0 = glob0
-        self.nbrs_w, sq_w, self.vld_w = self._topk(glob0, W)
+        self.nbrs_w, sq_w, self.vld_w = self._topk(glob0, W, self._rows(glob0))
         self.cnt_w = torch.sum(self.vld_w, dim=-1)
         inf = torch.full_like(sq_w[:, 0], float("inf"))
         self.d_wmax = torch.where(self.cnt_w >= W, torch.sqrt(sq_w[:, W - 1]), inf)
@@ -77,14 +80,20 @@ class HModel:
             dynamic_gate=self.dynamic_gate)
 
     # ------------------------------------------------------------ pieces
-    def _topk(self, glob, kk):
-        rows, ncb = mp.gather_rows(self.m, glob, voxel_size=self.voxel_size)
-        return knn_rows.topk_from_rows(rows, ncb, glob, E=mp.E, B=self.m.bucket, k=kk)
+    def _rows(self, glob):
+        """Each query's block rows of the map: (row_idx (N,V), ncb (N,V,3))."""
+        return mp.block_rows(self.m, glob, voxel_size=self.voxel_size)
 
-    def _fit(self, nbrs, sq, vld):
+    def _topk(self, glob, kk, rows, active=None):
+        """K2 over the queries' block rows (table form: the kernel reads
+        the rows, they are never gathered)."""
+        return knn_rows.topk_from_table(self.m.ptable, *rows, glob, E=mp.E, B=self.m.bucket,
+                                        k=kk, active=active)
+
+    def _fit(self, nbrs, sq, vld, active=None):
         return plane_op.fit_planes(nbrs, sq, vld, num_match_points=self.k,
                                    max_dist_plane=self.max_dist_plane,
-                                   plane_threshold=self.plane_threshold)
+                                   plane_threshold=self.plane_threshold, active=active)
 
     def _dyn_gate(self, good, n_abcd, glob):
         """Robust residual gate: reject matches beyond gate·(two-pass robust
@@ -126,55 +135,79 @@ class HModel:
         cert_b = kth_d < self.voxel_size - torch.clamp(leave, min=0.0)
         return self.pc_valid & ~(cert_a & (b0_same | cert_b))
 
-    def _window_fit(self, ranked):
+    def _window_fit(self, ranked, active=None):
         sel_nbrs, sel_sq = ranked
-        return self._fit(sel_nbrs, sel_sq, torch.isfinite(sel_sq))
+        return self._fit(sel_nbrs, sel_sq, torch.isfinite(sel_sq), active)
 
-    def _match(self, glob):
-        """FULL re-match at the given pose (exact by construction)."""
-        n_abcd, good = self._fit(*self._topk(glob, self.k))
-        return self._finish(n_abcd, good, glob)
+    def _full_fit(self, glob, rows, active=None):
+        """FULL re-match fit at the given pose (exact by construction)."""
+        return self._fit(*self._topk(glob, self.k, rows, active), active)
 
-    def _patched_match(self, glob, ranked, stale):
-        """Window re-match with the ≤ budget stale queries re-resolved."""
-        n_w, good_w = self._window_fit(ranked)
+    def _patched_fit(self, glob, rows, fit_w, stale, active=None):
+        """The window fit with the ≤ budget stale queries re-resolved (the
+        stale ones first, in query order, as lax.top_k picks them)."""
+        n_w, good_w = fit_w
         idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:self.budget]
         sel_ok = stale[idx]
-        qg = glob[idx]
-        n_s, good_s = self._fit(*self._topk(qg, self.k))
+        n_s, good_s = self._fit(*self._topk(glob[idx], self.k, (rows[0][idx], rows[1][idx]),
+                                            active), active)
         n_m = n_w.clone()
         good_m = good_w.clone()
         n_m[idx] = torch.where(sel_ok[:, None], n_s, n_w[idx])
         good_m[idx] = torch.where(sel_ok, good_s, good_w[idx])
-        return self._finish(n_m, good_m, glob)
+        return n_m, good_m
 
-    def _rematch_counted(self, glob):
-        """``rematch`` plus the stale count (a host int) that chose its branch."""
+    def _rematch_counted(self, glob, active=None):
+        """``rematch`` plus the stale count (() int32) that chose its branch.
+
+        All three branches run on fixed shapes and ``torch.where`` keeps the
+        chosen one — the JAX ``cond`` chain, decided on the device: the
+        window fit (K3, flag ``active``), the patched fit (K2 on the
+        ``budget`` first queries by staleness, K3; flag ``active & 0 < viol
+        ≤ budget``) and the full re-match (K2 on every query, K3; flag
+        ``active & viol > budget``).  A clear flag makes a kernel return at
+        once, so the branches not taken cost launches and glue, not a
+        map-row gather."""
         ranked = self._window_rank(glob)
         stale = self._stale_mask(glob, ranked[1])
-        viol = int(iekf.counters.read(torch.sum(stale.to(torch.int32))))
-        if viol == 0:
-            self.last_branch = "window"
-            return (*self._finish(*self._window_fit(ranked), glob), viol)
-        if viol <= self.budget:
-            self.last_branch = "patched"
-            return (*self._patched_match(glob, ranked, stale), viol)
-        self.last_branch = "full"
-        return (*self._match(glob), viol)
+        viol = torch.sum(stale, dtype=torch.int32)
+        some, few = viol > 0, viol <= self.budget
+        on_patch, on_full = some & few, ~few
+        if active is not None:
+            on_patch, on_full = active & on_patch, active & on_full
+        rows = self._rows(glob)
+        fit_w = self._window_fit(ranked, active)
+        fit_p = self._patched_fit(glob, rows, fit_w, stale, on_patch)
+        fit_f = self._full_fit(glob, rows, on_full)
+        n_abcd, good = (torch.where(some, torch.where(few, p, f), w)
+                        for w, p, f in zip(fit_w, fit_p, fit_f))
+        self._viol = viol
+        return (*self._finish(n_abcd, good, glob), viol)
 
-    def rematch(self, glob):
+    @property
+    def last_branch(self):
+        """The last re-match's branch as a () int32 code on the device: 0
+        window, 1 patched, 2 full (None before any re-match)."""
+        if self._viol is None:
+            return None
+        v = self._viol
+        return torch.where(v > 0, torch.where(v <= self.budget, 1, 2), 0).to(torch.int32)
+
+    def rematch(self, glob, active=None):
         """Per-iteration exact re-match: window fast path, stale patch, or a
         full re-gather when the stale count exceeds the budget."""
-        return self._rematch_counted(glob)[:2]
+        return self._rematch_counted(glob, active)[:2]
 
     # -------------------------------------------------------------- API
-    def stats(self, x: st.NavState):
-        """(HᵀH (12,12), Hᵀh (12,)) at the iterate x (K4 statistics)."""
+    def stats(self, x: st.NavState, active=None):
+        """(HᵀH (12,12), Hᵀh (12,)) at the iterate x (K4 statistics);
+        ``active`` (() bool) is the re-match's and K4's flag (unspecified
+        results on the card where it is clear)."""
         glob = so3.quat_rotate(x.rot, self.pc) + x.pos
-        n_abcd, keep = self.rematch(glob)
+        n_abcd, keep = self.rematch(glob, active)
         X = hstats_op.pack_inputs(self.pc, n_abcd, keep)
         return hstats_op.hstats(X, hstats_op.pack_scalars(x),
-                                estimate_extrinsics=self.estimate_extrinsics)
+                                estimate_extrinsics=self.estimate_extrinsics, active=active)
 
     def debug(self, x: st.NavState):
         """Match telemetry at the iterate x (the JAX ``h_debug``): the
@@ -183,8 +216,7 @@ class HModel:
         of queries whose window certificates fail there ``() int32``."""
         glob = so3.quat_rotate(x.rot, self.pc) + x.pos
         n_abcd, keep, viol = self._rematch_counted(glob)
-        dist = plane_op.point_to_plane(n_abcd, glob)
-        return n_abcd, keep, dist, torch.tensor(viol, dtype=torch.int32, device=glob.device)
+        return n_abcd, keep, plane_op.point_to_plane(n_abcd, glob), viol
 
 
 def make_h_model(m: mp.VoxelHashMap, pc, pc_valid, **kw) -> HModel:

@@ -13,6 +13,20 @@ from fast_limo_tpu_torch.ops import so3
 # SensorType enum (Common.hpp:82)
 OUSTER, VELODYNE, HESAI, LIVOX = 0, 1, 2, 3
 
+# crop boxes, uploaded once per (box, dtype, device): an upload from a host
+# list on every scan would block the host
+_BOXES = {}
+
+
+def _crop_box(crop_min, crop_max, dtype, device):
+    key = (tuple(float(v) for v in crop_min), tuple(float(v) for v in crop_max), dtype,
+           torch.device(device))
+    box = _BOXES.get(key)
+    if box is None:
+        box = torch.tensor([key[0], key[1]], dtype=dtype, device=device)
+        _BOXES[key] = box
+    return box
+
 
 def extract_point_times(t_raw, sweep_ref_time, sensor_type: int, end_of_sweep: bool):
     """Absolute per-point seconds (Localizer.cpp:747-783); works on numpy
@@ -42,8 +56,7 @@ def preprocess_scan(points, t_raw, valid, scan_stamp, imu_stamp, *,
     dev = points.device
     valid = valid & torch.all(torch.isfinite(points), dim=-1)
     if crop_active:   # negative crop: REMOVE points inside the box
-        lo = torch.tensor(crop_min, dtype=points.dtype, device=dev)
-        hi = torch.tensor(crop_max, dtype=points.dtype, device=dev)
+        lo, hi = _crop_box(crop_min, crop_max, points.dtype, dev)
         valid = valid & ~torch.all((points >= lo) & (points <= hi), dim=-1)
     if dist_active:
         valid = valid & (torch.linalg.norm(points, dim=-1) > min_dist)

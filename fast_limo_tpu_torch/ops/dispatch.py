@@ -39,16 +39,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # scalars by value, so a launch uploads nothing)
 _SIGNATURES = {
     "fl_deskew": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P],
-    "fl_knn_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "fl_knn_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "fl_masked_topk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "fl_fit_planes": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P],
-    "fl_hstats": [_P, _I, _P, _I, _P, _P],
+    "fl_fit_planes": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+    "fl_hstats": [_P, _I, _P, _I, _P, _P, _P],
     "fl_gain": [_P, _P, _P, _F, _P, _P, _P, _P],
-    "fl_update_body": [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P],
+    "fl_update_body": [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P],
     "fl_update_loop_scratch": [_I],
     "fl_update_loop": [_P, _I, _P, _P, _F, _F, _F, _I, _I, _F, _F, _F, _F, _I, _F,
                        _I, _I, _P, _P, _P, _P, _P],
-    "fl_sort3": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "fl_sort3": [_P, _P, _P, _I, _P, _P, _P, _P],
 }
 
 _lib = None
@@ -146,6 +146,15 @@ def library():
 
 def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def flag(active):
+    """The device pointer of an optional active flag (a () bool CUDA
+    tensor, read by the kernel), or NULL for "always run"."""
+    if active is None:
+        return None
+    require(active, "active", dtype=torch.bool, shape=())
+    return ptr(active)
 
 
 def stream():

@@ -78,15 +78,16 @@ def gain_math(A, u, Pm, inv_R):
     for k in range(M):
         cand = torch.where(idx >= k, torch.abs(Aug[:, k]),
                            torch.full_like(Aug[:, k], -1.0))
-        piv = int(torch.argmax(cand))
-        rp = Aug[piv].clone()
+        piv = torch.argmax(cand).reshape(1)              # the pivot row, on the device
+        is_piv = (idx == piv)[:, None]
+        rp = Aug.index_select(0, piv)[0]
         rk = Aug[k].clone()
         pkv = rp[k]
         nz = pkv != 0.0
         inv_pk = torch.where(nz, 1.0 / torch.where(nz, pkv, torch.ones_like(pkv)),
                              torch.zeros_like(pkv))
         prow = rp * inv_pk
-        Aug[piv] = rk
+        Aug = torch.where(is_piv, rk[None, :], Aug)
         Aug[k] = prow
         factor = Aug[:, k].clone()
         factor[k] = 0.0

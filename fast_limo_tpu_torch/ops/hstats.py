@@ -10,7 +10,10 @@ and the 14 pose scalars ``pack_scalars(x)``.
 
 ``hstats`` launches ``csrc/hstats.cu`` (one thread-block cluster, one
 kernel, one (156,) output whose views it returns) on CUDA tensors,
-``hstats_plain`` runs on CPU tensors.
+``hstats_plain`` runs on CPU tensors.  An optional active flag (a () bool
+device tensor) lets the exact update loop launch the kernel on every scan:
+a clear flag makes every block return at once, and the caller discards the
+output.
 """
 
 from __future__ import annotations
@@ -97,25 +100,26 @@ def pack_scalars(x: st.NavState):
     return torch.cat([x.rot, x.pos, x.rot_LI, x.t_LI]).to(torch.float32)
 
 
-def _launch(X, sc, *, estimate_extrinsics: bool):
+def _launch(X, sc, active, *, estimate_extrinsics: bool):
     Np = X.shape[0] // 8
     dispatch.require(X, "X", shape=(8 * Np,))
     dispatch.require(sc, "scalars", shape=(14,))
     out = torch.empty(M * M + M, dtype=torch.float32, device=X.device)
     err = dispatch.library().fl_hstats(dispatch.ptr(X), Np, dispatch.ptr(sc),
-                                       int(bool(estimate_extrinsics)), dispatch.ptr(out),
-                                       dispatch.stream())
+                                       int(bool(estimate_extrinsics)), dispatch.flag(active),
+                                       dispatch.ptr(out), dispatch.stream())
     dispatch.check(err, "hstats")
     hstats.launches += 1
     return out[:M * M].view(M, M), out[M * M:]
 
 
-def hstats(X, sc, *, estimate_extrinsics: bool):
+def hstats(X, sc, *, estimate_extrinsics: bool, active=None):
     """Statistics from ``pack_inputs`` channels and ``pack_scalars`` →
-    (HᵀH (12,12), Hᵀh (12,))."""
+    (HᵀH (12,12), Hᵀh (12,)); unspecified where ``active`` (() bool) is
+    clear on the card."""
     if not dispatch.on_cuda(X):
         return hstats_plain(X, sc, estimate_extrinsics=estimate_extrinsics)
-    return _launch(X.contiguous(), sc.contiguous(),
+    return _launch(X.contiguous(), sc.contiguous(), active,
                    estimate_extrinsics=estimate_extrinsics)
 
 

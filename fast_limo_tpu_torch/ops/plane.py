@@ -61,12 +61,13 @@ def _null_vector(M, lam):
 
 
 def fit_planes(nbrs, sq_dists, nbr_valid, *, num_match_points: int,
-               max_dist_plane: float, plane_threshold: float):
+               max_dist_plane: float, plane_threshold: float, active=None):
     """nbrs (N,k,3), sq_dists (N,k) ascending, nbr_valid (N,k) →
-    (n_abcd (N,4) with ``n·p + d ≈ 0``, ``|n| = 1``, ``d ≥ 0``; good (N,))."""
+    (n_abcd (N,4) with ``n·p + d ≈ 0``, ``|n| = 1``, ``d ≥ 0``; good (N,));
+    ``active``: K3's optional flag (``plane_kernel.fit_planes``)."""
     return plane_kernel.fit_planes(
         nbrs, sq_dists, nbr_valid, num_match_points=num_match_points,
-        max_dist_plane=max_dist_plane, plane_threshold=plane_threshold)
+        max_dist_plane=max_dist_plane, plane_threshold=plane_threshold, active=active)
 
 
 def point_to_plane(n_abcd, pts):

@@ -5,7 +5,10 @@
 the valid neighbours (select-masked), centred scatter, closed-form
 eigenvalues, largest-cross-product null vector, ``d ≥ 0`` sign, and the
 enough / kth-distance / residual / planarity-spread / finite gates.
-Gated-out rows are exactly zero (consumers mask by ``good``).
+Gated-out rows are exactly zero (consumers mask by ``good``).  An optional
+active flag (a () bool device tensor) lets the exact update loop launch
+the kernel on every scan: a clear flag makes it return at once, and the
+caller discards its outputs.
 """
 
 from __future__ import annotations
@@ -127,7 +130,7 @@ def fit_planes_plain(nbrs, sq_dists, nbr_valid, *, num_match_points: int,
                     plane_threshold=plane_threshold)
 
 
-def _launch(nbrs, sq_dists, nbr_valid, *, num_match_points, max_dist_plane,
+def _launch(nbrs, sq_dists, nbr_valid, active, *, num_match_points, max_dist_plane,
             plane_threshold):
     N, k, _ = nbrs.shape
     dispatch.require(nbrs, "nbrs")
@@ -138,23 +141,24 @@ def _launch(nbrs, sq_dists, nbr_valid, *, num_match_points, max_dist_plane,
     err = dispatch.library().fl_fit_planes(
         dispatch.ptr(nbrs), dispatch.ptr(sq_dists), dispatch.ptr(nbr_valid), N,
         k, int(num_match_points), float(max_dist_plane), float(plane_threshold),
-        float(plane_threshold) * float(plane_threshold), dispatch.ptr(n_abcd),
-        dispatch.ptr(good), dispatch.stream())
+        float(plane_threshold) * float(plane_threshold), dispatch.flag(active),
+        dispatch.ptr(n_abcd), dispatch.ptr(good), dispatch.stream())
     dispatch.check(err, "fit_planes")
     fit_planes.launches += 1
     return n_abcd, good
 
 
 def fit_planes(nbrs, sq_dists, nbr_valid, *, num_match_points: int,
-               max_dist_plane: float, plane_threshold: float):
-    """(N,k,3), (N,k), (N,k) → (n_abcd (N,4), good (N,))."""
+               max_dist_plane: float, plane_threshold: float, active=None):
+    """(N,k,3), (N,k), (N,k) → (n_abcd (N,4), good (N,)); unspecified
+    outputs where ``active`` (() bool) is clear on the card."""
     kw = dict(num_match_points=num_match_points,
               max_dist_plane=float(max_dist_plane),
               plane_threshold=float(plane_threshold))
     if not dispatch.on_cuda(nbrs):
         return fit_planes_plain(nbrs, sq_dists, nbr_valid, **kw)
     return _launch(nbrs.contiguous(), sq_dists.contiguous(),
-                   nbr_valid.contiguous(), **kw)
+                   nbr_valid.contiguous(), active, **kw)
 
 
 fit_planes.launches = 0

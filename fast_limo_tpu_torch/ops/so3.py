@@ -47,9 +47,18 @@ def quat_mul(q, p):
     ], dim=-1)
 
 
+# quat_conj's sign vector, uploaded once per (dtype, device): an upload from
+# a host list on every call would block the host
+_CONJ = {}
+
+
 def quat_conj(q):
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    key = (q.dtype, q.device)
+    sign = _CONJ.get(key)
+    if sign is None:
+        sign = torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+        _CONJ[key] = sign
+    return q * sign
 
 
 def quat_normalize(q):

@@ -6,12 +6,18 @@ order is total, so the result is the stable 2-key sort by ``(k1, k2)``
 with ties in original order.  ``sort_key_val(key, val)`` is
 ``sort3(key, val, val)`` with the middle output dropped.
 
-On CUDA tensors both launch ``csrc/sort3.cu`` (a bitonic network padded to
-the next power of two with INT32_MAX); on CPU tensors they run
-``sort3_plain``, an exact lexicographic sort for any ``v``.  The kernel
-takes contiguous int32 tensors of 1 to ``MAXN`` elements and raises on
-anything else.  The two callers, ``ops/voxel.voxel_downsample`` and
-``models/mapper.insert``, run on every scan.
+On CUDA tensors both launch ``csrc/sort3.cu`` (one launch of one 16-block
+thread-block cluster: a stable LSD radix sort over 8-bit digits with the
+triples in the blocks' shared memory, passes that cannot move anything
+skipped on the device); on CPU tensors they run ``sort3_plain``, an exact
+lexicographic sort for any ``v``.  The kernel takes contiguous int32
+tensors of 1 to ``MAXN`` elements and raises on anything else: ``MAXN`` =
+2^17 is what 16 blocks hold double-buffered in their shared memory (8192
+triples of 12 bytes, twice, in each block's 227 KB), enough for the voxel
+sort of an HDL-64 scan (~125 000 points); there is no fallback beyond it.
+The callers, ``ops/voxel.voxel_downsample`` and ``models/mapper.insert``,
+run on every scan; the SLAM engine's map rebuild inserts 65 536 points a
+call.
 """
 
 from __future__ import annotations
@@ -20,7 +26,17 @@ import torch
 
 from fast_limo_tpu_torch.ops import dispatch
 
-MAXN = 1 << 24      # FL_SORT_MAXN of csrc/sort3.cu
+MAXN = 1 << 17      # FL_SORT_MAXN of csrc/sort3.cu
+
+
+def require_fits(n: int, what: str) -> None:
+    """Raise unless the kernel takes a sort of ``n`` elements.  The step and
+    the SLAM engine call this when they are built on the card, so a
+    configuration whose sorts exceed ``MAXN`` (a 128-beam scan of 262 144
+    points, say) fails there and not at its first scan."""
+    if n > MAXN:
+        raise ValueError(f"{what} = {n}: the sort3 kernel sorts at most {MAXN} elements "
+                         f"on the card (ops/sort.py MAXN)")
 
 
 def sort3_plain(k1, k2, v):
@@ -38,14 +54,13 @@ def _launch(k1, k2, v):
         dispatch.require(t, name, dtype=torch.int32, shape=(N,))
     if not 1 <= N <= MAXN:
         raise ValueError(f"the sort3 kernel takes 1 to {MAXN} elements, got {N}")
-    Np = 1 << (N - 1).bit_length()
-    w = torch.empty((3, Np), dtype=torch.int32, device=k1.device)
+    out = torch.empty((3, N), dtype=torch.int32, device=k1.device)
     err = dispatch.library().fl_sort3(
-        dispatch.ptr(k1), dispatch.ptr(k2), dispatch.ptr(v), N, Np, dispatch.ptr(w[0]),
-        dispatch.ptr(w[1]), dispatch.ptr(w[2]), dispatch.stream())
+        dispatch.ptr(k1), dispatch.ptr(k2), dispatch.ptr(v), N, dispatch.ptr(out[0]),
+        dispatch.ptr(out[1]), dispatch.ptr(out[2]), dispatch.stream())
     dispatch.check(err, "sort3")
     sort3.launches += 1
-    return w[0, :N], w[1, :N], w[2, :N]
+    return out[0], out[1], out[2]
 
 
 def sort3(k1, k2, v):

@@ -16,7 +16,9 @@ From ``(HᵀH, Hᵀh, P_prop, x, x_prop)`` — the body of
 ``update_body_plain`` is the same algebra in plain torch (the eigen-
 decomposition of the guard by ``torch.linalg.eigh``; the kernel runs a 6×6
 Jacobi).  Returns ``(x_next (NavState), P_fin (23,23), dx_ (23,),
-gersh_min (), min_eig ())``.
+gersh_min (), min_eig ())``.  An optional active flag (a () bool device
+tensor) lets the exact update loop launch the kernel on every scan: a
+clear flag makes it return at once, and the caller discards its outputs.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ def update_body_plain(HTH, HTh, P, x: st.NavState, x_prop: st.NavState, R, D):
     return iter_core(HTH, HTh, P, dx, x, x_prop.grav, inv_R, D)
 
 
-def _launch(HTH, HTh, P, x: st.NavState, x_prop: st.NavState, R, D):
+def _launch(HTH, HTh, P, x: st.NavState, x_prop: st.NavState, R, D, active=None):
     dev = P.device
     dispatch.require(HTH, "HTH", shape=(M, M))
     dispatch.require(HTh, "HTh", shape=(M,))
@@ -105,18 +107,21 @@ def _launch(HTH, HTh, P, x: st.NavState, x_prop: st.NavState, R, D):
     gm = torch.empty(2, dtype=torch.float32, device=dev)
     err = dispatch.library().fl_update_body(
         dispatch.ptr(HTH), dispatch.ptr(HTh), dispatch.ptr(P), dispatch.ptr(xv),
-        dispatch.ptr(xpv), 1.0 / float(R), float(D), dispatch.ptr(xn), dispatch.ptr(Pf),
+        dispatch.ptr(xpv), 1.0 / float(R), float(D), dispatch.flag(active),
+        dispatch.ptr(xn), dispatch.ptr(Pf),
         dispatch.ptr(dxo), dispatch.ptr(gm), dispatch.stream())
     dispatch.check(err, "update_body")
     update_body.launches += 1
     return st.from_vector(xn), Pf, dxo, gm[0], gm[1]
 
 
-def update_body(HTH, HTh, P, x: st.NavState, x_prop: st.NavState, R, D):
+def update_body(HTH, HTh, P, x: st.NavState, x_prop: st.NavState, R, D, active=None):
+    """One iteration body (see the module docstring); unspecified outputs
+    where ``active`` (() bool) is clear on the card."""
     if not dispatch.on_cuda(P):
         return update_body_plain(HTH, HTh, P, x, x_prop, R, D)
     return _launch(HTH.contiguous(), HTh.contiguous(), P.contiguous(), x,
-                   x_prop, R, D)
+                   x_prop, R, D, active)
 
 
 update_body.launches = 0

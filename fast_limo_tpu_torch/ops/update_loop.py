@@ -65,7 +65,7 @@ def pack_window(pc, pc_valid, nbrs_w, vld_w, cnt_w):
 
 def _window_match(chans, glob, it: int, frozen, win: Window):
     """One iteration's exact window re-match (the kernel's per-point phase):
-    ((ux, uy, uz, d), keep, badq, frozen')."""
+    ((ux, uy, uz, d), keep, badq, frozen', the k-th squared distance)."""
     px, py, pz, pvld, cnt, wx, wy, wz = chans
     k, W = win.k, win.W
     gx, gy, gz = glob
@@ -123,64 +123,98 @@ def _window_match(chans, glob, it: int, frozen, win: Window):
     cum = torch.cumsum(good.to(torch.int32), dim=0)
     keep = good & (cum <= win.max_num_matches)
 
-    if it == 0:
-        badq = torch.zeros_like(good)
-    else:
-        (g0x, g0y, g0z), b0, lo, d_wmax = frozen
-        ddx, ddy, ddz = gx - g0x, gy - g0y, gz - g0z
-        delta = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
-        kth_d = torch.sqrt(kth)
-        cert_a = (cnt < W - 0.5) | (kth_d < d_wmax - delta)
-        b0same = torch.ones_like(good)
-        leave = torch.zeros_like(gx)
-        for g, b, l0 in zip(glob, b0, lo):
-            b0same = b0same & (torch.floor((floor_div(g, win.voxel_size) - 1.0) * 0.5) == b)
-            leave = torch.maximum(leave, torch.maximum(l0 - g, g - (l0 + 2.0 * win.voxel_size)))
-        cert_b = kth_d < win.voxel_size - torch.clamp(leave, min=0.0)
-        badq = (pvld > 0) & ~(cert_a & (b0same | cert_b))
-    return (ux, uy, uz, dpl), keep, badq, frozen
+    badq = torch.zeros_like(good) if it == 0 else \
+        _certificates(glob, kth, cnt, pvld, frozen, win)[0]
+    return (ux, uy, uz, dpl), keep, badq, frozen, kth
+
+
+def _certificates(glob, kth, cnt, pvld, frozen, win: Window):
+    """The staleness certificates at an iterate: (stale (N,) bool, margin_a,
+    margin_b, kth_d), the margins ``d_wmax − delta − kth_d`` and ``h −
+    max(leave, 0) − kth_d`` by which cert_a and cert_b hold (> 0) or fail,
+    and the k-th distance they are compared with."""
+    gx, gy, gz = glob
+    (g0x, g0y, g0z), b0, lo, d_wmax = frozen
+    ddx, ddy, ddz = gx - g0x, gy - g0y, gz - g0z
+    delta = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
+    kth_d = torch.sqrt(kth)
+    cert_a = (cnt < win.W - 0.5) | (kth_d < d_wmax - delta)
+    b0same = torch.ones_like(pvld > 0)
+    leave = torch.zeros_like(gx)
+    for g, b, l0 in zip(glob, b0, lo):
+        b0same = b0same & (torch.floor((floor_div(g, win.voxel_size) - 1.0) * 0.5) == b)
+        leave = torch.maximum(leave, torch.maximum(l0 - g, g - (l0 + 2.0 * win.voxel_size)))
+    cert_b = kth_d < win.voxel_size - torch.clamp(leave, min=0.0)
+    stale = (pvld > 0) & ~(cert_a & (b0same | cert_b))
+    return (stale, (d_wmax - delta) - kth_d,
+            (win.voxel_size - torch.clamp(leave, min=0.0)) - kth_d, kth_d)
+
+
+def window_stale(X, x_prop: st.NavState, x: st.NavState, *, window: Window):
+    """The plain version's per-query certificate failures at the iterate
+    ``x`` (the window frozen at ``x_prop``, as in ``update_loop_plain``):
+    (stale (N,) bool, margin_a, margin_b, kth_d) — see ``_certificates``.
+    Held against K6's stale count at K6's own iterates by the card tests."""
+    W = window.W
+    Np = X.shape[0] // (5 + 3 * W)
+    ch = [X[i * Np:(i + 1) * Np] for i in range(5 + 3 * W)]
+    chans = (*ch[0:5], ch[5::3], ch[6::3], ch[7::3])
+
+    def glob_at(y):
+        return glob_math(ch[0], ch[1], ch[2], torch.cat([y.rot, y.pos, y.rot_LI, y.t_LI]))
+
+    frozen = _window_match(chans, glob_at(x_prop), 0, None, window)[3]
+    glob = glob_at(x)
+    kth = _window_match(chans, glob, 1, frozen, window)[4]
+    return _certificates(glob, kth, ch[4], ch[3], frozen, window)
 
 
 def update_loop_plain(X, P, x_prop: st.NavState, R, D, limit, *, max_iters: int,
                       estimate_extrinsics: bool, window: Window):
+    """The kernel's iterations in plain torch.  Like the kernel it reads
+    nothing on the host: all ``max_iters + 1`` iterations run, those after
+    the stop rule fired are masked out (``torch.where``), as the kernel's
+    loop would not have run them."""
     W = window.W
     Np = X.shape[0] // (5 + 3 * W)
     ch = [X[i * Np:(i + 1) * Np] for i in range(5 + 3 * W)]
     chans = (*ch[0:5], ch[5::3], ch[6::3], ch[7::3])
     px, py, pz = ch[0], ch[1], ch[2]
-    inv_R = torch.tensor(1.0 / R, dtype=X.dtype, device=X.device)
+    f32, dev = X.dtype, X.device
+    inv_R = torch.tensor(1.0 / R, dtype=f32, device=dev)
     x = x_prop
-    dx = torch.zeros(NS, dtype=X.dtype, device=X.device)
+    dx = torch.zeros(NS, dtype=f32, device=dev)
     P_out = P
-    ok, t, nit = True, 0, 0
-    gersh_min = min_eig = float("inf")
-    bad_total = 0.0
+    zero = torch.zeros((), dtype=f32, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    t, nit, bad_total = zero, zero, zero
+    gersh_min = min_eig = torch.full((), float("inf"), dtype=f32, device=dev)
     frozen = None
     for it in range(max_iters + 1):
+        run = ~done
         s = torch.cat([x.rot, x.pos, x.rot_LI, x.t_LI])
         glob = glob_math(px, py, pz, s)
-        (ux, uy, uz, dpl), keep, badq, frozen = _window_match(
+        (ux, uy, uz, dpl), keep, badq, frozen, _ = _window_match(
             chans, glob, it, frozen, window)
-        nbad = float(torch.sum(badq))
-        ok = ok and nbad == 0.0
-        bad_total += nbad
+        nbad = torch.where(run, torch.sum(badq).to(f32), zero)
+        ok = ok & (nbad == 0.0)
+        bad_total = bad_total + nbad
         cols, hneg = h_rows((px, py, pz, ux, uy, uz, dpl, keep.to(px.dtype)), s,
                             estimate_extrinsics=estimate_extrinsics, glob=glob)
         HTH, HTh = stats_from_rows(cols, hneg)
         xn, Pf, dx_, gersh, me = iter_core(HTH, HTh, P, dx, x, x_prop.grav,
                                            inv_R, D)
-        t += int(bool(torch.max(torch.abs(dx_)) <= limit))
-        done_now = t > 1 or it == max_iters
-        dx = st.boxminus(xn, x_prop)
-        x = xn
-        nit = it + 1
-        gersh_min = min(gersh_min, float(gersh))
-        min_eig = min(min_eig, float(me))
-        if done_now:
-            P_out = Pf
-            break
-    aux = torch.tensor([nit, float(ok), gersh_min, min_eig, bad_total, 0, 0, 0],
-                       dtype=torch.float32, device=X.device)
+        t = torch.where(run, t + (torch.max(torch.abs(dx_)) <= limit).to(f32), t)
+        done_now = run & ((t > 1.0) | (it == max_iters))
+        x = st.where(run, xn, x)
+        dx = torch.where(run, st.boxminus(xn, x_prop), dx)
+        nit = torch.where(run, zero + (it + 1), nit)
+        gersh_min = torch.where(run, torch.fmin(gersh_min, gersh), gersh_min)   # fminf
+        min_eig = torch.where(run, torch.fmin(min_eig, me), min_eig)
+        P_out = torch.where(done_now, Pf, P_out)
+        done = done | done_now
+    aux = torch.stack([nit, ok.to(f32), gersh_min, min_eig, bad_total, zero, zero, zero])
     return x, P_out, aux
 
 

@@ -102,10 +102,10 @@ def test_gather_rows_neighborhoods_match_jax(maps, nbh):
 def test_knn_matches_jax(maps, nbh, k):
     tm, jm = maps
     q = _queries()
-    n0 = knn_rows.topk_from_rows.launches
+    n0 = knn_rows.topk_from_table.launches
     nb, sq, vl = (a.numpy() for a in mp.knn(tm, torch.tensor(q), voxel_size=VOX, k=k,
                                              neighborhood=nbh))
-    assert knn_rows.topk_from_rows.launches == n0          # plain version on the CPU
+    assert knn_rows.topk_from_table.launches == n0          # plain version on the CPU
     wn, ws, wv = (np.asarray(a) for a in jmp.knn(jm, jnp.asarray(q), voxel_size=VOX, k=k,
                                                  neighborhood=nbh))
     np.testing.assert_array_equal(vl, wv)

@@ -8,8 +8,9 @@ Tolerances:
 * K4: rtol 1e-5 (tests/test_hstats.py) plus atol 1e-6·max|HᵀH| for
   entries that are sums of cancelling terms.
 * make_h_model: the same branch is taken (window / stale patch / full
-  re-match, chosen from the same stale count) and HᵀH, Hᵀh agree to
-  1e-4·max — the fits differ in float32 summation order only."""
+  re-match, chosen from the same stale count — on the device in the port,
+  whose ``last_branch`` is the () int32 code 0 / 1 / 2) and HᵀH, Hᵀh agree
+  to 1e-4·max — the fits differ in float32 summation order only."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -142,7 +143,8 @@ def test_make_h_model_branches_match_jax(rng, shift, budget, branch):
     x = dict(scene[2])
     x["pos"] = x["pos"] + np.array([shift, -0.6 * shift, 0.1 * shift])
     HTH, HTh = th.stats(_ts(x))
-    assert th.last_branch == branch
+    assert th.last_branch.dtype == torch.int32
+    assert int(th.last_branch) == ("window", "patched", "full").index(branch)
     jHTH, jHTh = (np.asarray(a) for a in jh(_js(x)))
     np.testing.assert_allclose(HTH.numpy(), jHTH, rtol=0, atol=1e-4 * np.abs(jHTH).max())
     np.testing.assert_allclose(HTh.numpy(), jHTh, rtol=0, atol=1e-4 * np.abs(jHTh).max())

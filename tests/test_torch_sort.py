@@ -118,3 +118,28 @@ def test_cpu_tensors_launch_nothing_and_the_kernel_refuses_them():
     assert sort.sort3.launches == n0
     with pytest.raises(ValueError, match="CUDA"):
         sort._launch(k, k, k)
+
+
+def test_card_builds_refuse_sorts_above_the_cap(monkeypatch):
+    """A scan or a SLAM map rebuild larger than the kernel's MAXN is refused
+    when the Localizer or the SLAM engine is built on the card, not at the
+    first scan's sort.  The card is stood in for by resolve_device, so the
+    refusal must come before anything touches it."""
+    from fast_limo_tpu_torch.models.localizer import Localizer
+    from fast_limo_tpu_torch.models.slam import SLAM, LoopConfig
+    from fast_limo_tpu_torch.ops import dispatch
+    from fast_limo_tpu_torch.utils import presets
+
+    sort.require_fits(sort.MAXN, "n")
+    with pytest.raises(ValueError, match="at most"):
+        sort.require_fits(sort.MAXN + 1, "n")
+    monkeypatch.setattr(dispatch, "resolve_device", lambda device: torch.device("cuda"))
+    cfg = presets.kitti_like_cfg()
+    cfg.tpu.max_points_per_scan = 2 * sort.MAXN         # a 128-beam scan
+    with pytest.raises(ValueError, match="max_points_per_scan = 262144"):
+        Localizer(cfg, "cuda")
+    with pytest.raises(ValueError, match="max_points_per_scan"):
+        SLAM(cfg, device="cuda")
+    cfg.tpu.max_points_per_scan = 32768
+    with pytest.raises(ValueError, match="rebuild_points = 139264"):
+        SLAM(cfg, LoopConfig(rebuild_batch=17), device="cuda")

@@ -136,9 +136,9 @@ def test_plain_k2_matches_jax(rng, k):
     tm, jm = _filled_map(rng)
     q = np.float32(rng.uniform(-7, 7, (200, 3)))
     q[:20] = q[:20] + 30.0                     # queries with few/no candidates
-    rows, ncb = mp.gather_rows(tm, torch.tensor(q), voxel_size=VOXEL)
-    nb, sq, vl = (a.numpy() for a in knn_rows.topk_from_rows(
-        rows, ncb, torch.tensor(q), E=mp.E, B=3, k=k))
+    row_idx, ncb = mp.block_rows(tm, torch.tensor(q), voxel_size=VOXEL)
+    nb, sq, vl = (a.numpy() for a in knn_rows.topk_from_table(
+        tm.ptable, row_idx, ncb, torch.tensor(q), E=mp.E, B=3, k=k))
     jrows, jncb, _ = jmp.gather_rows(jm, jnp.asarray(q), voxel_size=VOXEL)
     rn, rs, rv = _numpy_topk(jrows, jncb, q, k)
     np.testing.assert_array_equal(sq, rs)

@@ -15,7 +15,9 @@ Phases (each prints its own lines):
               be < 0.15 m), per-scan wall ms p50/p95 after warm-up, the
               launch count of every kernel (K1, K2, K6 and
               the exact loop's K3/K4/K5, which launch on every scan behind
-              their active flag, must be > 0; K9 exactly twice a scan: the
+              their active flag, must be > 0; K3 exactly once an evaluation,
+              through fit_planes_select, the re-match's three branches in
+              one launch; K9 exactly twice a scan: the
               voxel and the insert sort), the loop-fallback count (read
               from the device after the replay) and the host-read count
               (must be 0); every steady scan runs under
@@ -24,15 +26,19 @@ Phases (each prints its own lines):
               frame on its stack: none may be named.
 4. fallback — the exact per-iteration update loop (the path selected on
               the device when the whole-loop kernel's certificates fail) on
-              one captured scan at main-path shapes with no active flag,
-              plus its stale-patch and full re-match fits: K2 (k=5), K3,
-              K4, K5 must launch; its x/P are compared with the whole-loop
-              kernel's on that scan.
+              one captured scan at main-path shapes with no active flag:
+              K2 (k=5), K3 (once an evaluation), K4, K5 must launch; its
+              x/P are compared with the whole-loop kernel's on that scan.
 5. kernels  — every kernel's public wrapper against its plain PyTorch
               version on the card, on inputs captured from phases 3-4 and,
               for K8, from phase 8, which therefore runs before this one
               (K2 on the captured window resolve, its plain version the
-              gather of the map rows, then the plain top-k;
+              gather of the map rows, then the plain top-k; K3's one-set
+              entry on the captured scan's window set, and its select
+              entry on the window, a real stale patch and a real full
+              re-match at each branch code: bit for bit the torch.where
+              merge of three one-set launches, ONE CUDA kernel a call;
+              K5, K6 and K8 bit for bit to their records in tests/data;
               K9 on the captured voxel sort, N = 32768, and insert sort,
               N = 10000: all three outputs bit-equal, ONE CUDA kernel a
               call counted by torch.profiler, both one-call yardsticks —
@@ -757,9 +763,11 @@ def _split_phase(dev, cfg, seq, loc1, stamps, acc, gyro, scans, scan_ms, counts,
     if iekf.counters.host_syncs != evals * updated:
         _fail(f"split body: {iekf.counters.host_syncs} host reads, want one guard bound an "
               f"evaluation ({evals * updated})")
-    for name in ("deskew", "knn_rows", "fit_planes", "hstats", "sort3"):
+    for name in ("deskew", "knn_rows", "fit_planes_select", "hstats", "sort3"):
         if c[name] <= 0:
             _fail(f"kernel {name} did not launch on the split-body path")
+    if c["fit_planes_select"] != c["gain"]:
+        _fail(f"split body: K3 launched {c['fit_planes_select']} times, not once an evaluation")
     if not ate < 0.15:
         _fail(f"split-body ATE {ate:.4f} m >= 0.15 m")
     dpos = dquat = 0.0
@@ -1011,6 +1019,8 @@ def main() -> None:
                      "fast_limo_tpu/ops/knn_rows.py:107"),
         "fit_planes": (plane_kernel.fit_planes, "fast_limo_tpu_torch/csrc/plane.cu",
                        "fast_limo_tpu/ops/plane_kernel.py:193"),
+        "fit_planes_select": (plane_kernel.fit_planes_select, "fast_limo_tpu_torch/csrc/plane.cu",
+                              "fast_limo_tpu/ops/plane_kernel.py:193"),
         "hstats": (hstats.hstats, "fast_limo_tpu_torch/csrc/hstats.cu",
                    "fast_limo_tpu/ops/hstats.py:194"),
         "update_body": (update_body.update_body, "fast_limo_tpu_torch/csrc/update_body.cu",
@@ -1142,10 +1152,16 @@ def main() -> None:
           flush=True)
     if not ate < 0.15:
         _fail(f"ATE {ate:.4f} m >= 0.15 m")
-    # the exact loop's kernels launch on every scan behind their active flag
-    for name in ("deskew", "knn_rows", "fit_planes", "hstats", "update_body", "update_loop"):
+    # the exact loop's kernels launch on every scan behind their active flag,
+    # K3 once an evaluation (the re-match's three branches in one launch)
+    for name in ("deskew", "knn_rows", "fit_planes_select", "hstats", "update_body",
+                 "update_loop"):
         if main_counts[name] <= 0:
             _fail(f"kernel {name} did not launch on the main path")
+    evals = cfg.ikfom.MAX_NUM_ITERS + 1
+    if main_counts["fit_planes_select"] != evals * args.scans or main_counts["fit_planes"]:
+        _fail(f"K3 launched {main_counts['fit_planes_select']} + {main_counts['fit_planes']} "
+              f"times in {args.scans} scans, not once an evaluation ({evals} a scan)")
     if main_counts["sort3"] != 2 * args.scans:
         _fail(f"K9 launched {main_counts['sort3']} times in {args.scans} scans, not twice a scan")
     if syncs:
@@ -1171,11 +1187,7 @@ def main() -> None:
         w[0].launches = 0
     h.loop_pack = None                        # force the exact per-iteration loop
     cap3 = {}
-    o_fit, o_hs, o_ub = plane_kernel._launch, hstats._launch, update_body._launch
-
-    def fit_cap(nbrs, sq, valid, active, **kw):
-        cap3.setdefault("fit", ((nbrs, sq, valid), kw))
-        return o_fit(nbrs, sq, valid, active, **kw)
+    o_hs, o_ub = hstats._launch, update_body._launch
 
     def hs_cap(X, sc, active, **kw):
         cap3.setdefault("hstats", ((X, sc), kw))
@@ -1185,22 +1197,18 @@ def main() -> None:
         cap3.setdefault("body", (a[:7], {}))
         return o_ub(*a)
 
-    plane_kernel._launch, hstats._launch, update_body._launch = fit_cap, hs_cap, ub_cap
+    hstats._launch, update_body._launch = hs_cap, ub_cap
     x_f, P_f, n_f = iekf.update_iterated(
         x_prop, P, h, R=R, D=D, max_iters=loop_kw["max_iters"], limit=limit)
-    glob0 = h.glob0
-    ranked = h._window_rank(glob0)
-    stale = torch.zeros_like(h.pc_valid)
-    stale[: h.budget] = True
-    rows0 = h._rows(glob0)
-    h._patched_fit(glob0, rows0, h._window_fit(ranked), stale & h.pc_valid)
-    h._full_fit(glob0, rows0)
     torch.cuda.synchronize()
-    plane_kernel._launch, hstats._launch, update_body._launch = o_fit, o_hs, o_ub
+    hstats._launch, update_body._launch = o_hs, o_ub
     fb_counts = counts()
     print(f"[smoke] fallback: launches {json.dumps(fb_counts)} | n_iters exact {int(n_f)} "
           f"vs whole-loop {int(aux_k[0])}", flush=True)
-    for name in ("knn_rows", "fit_planes", "hstats", "update_body"):
+    if fb_counts["fit_planes_select"] != int(n_f) or fb_counts["fit_planes"]:
+        _fail(f"the exact loop launched K3 {fb_counts['fit_planes_select']} + "
+              f"{fb_counts['fit_planes']} times in {int(n_f)} evaluations, not once each")
+    for name in ("knn_rows", "fit_planes_select", "hstats", "update_body"):
         if fb_counts[name] <= 0:
             _fail(f"kernel {name} did not launch in the fallback phase")
     ex = _close("fallback x vs whole-loop x", st.as_vector(x_f), st.as_vector(xk), 1e-3, 2e-4)
@@ -1281,19 +1289,77 @@ def main() -> None:
            lambda: torch.topk(d2_k2, kw["k"], dim=1, largest=False),
            f"(N={q.shape[0]}, V={ridx.shape[1]}, k={kw['k']})")
 
-    # K3 fit_planes — gates agree on ≥ 99.5 %; rtol 5e-3 / atol 5e-4 where both good
-    fa, fkw = cap3["fit"]
+    # K3 — the re-match's sets at the captured scan's predicted pose (the
+    # fallback phase's first evaluation): the window rank, and K2 without a
+    # flag on the idx rows and on every query, so all three sets are real;
+    # the budget first valid queries are marked stale.
+    glob0 = h.glob0
+    fkw = dict(num_match_points=h.k, max_dist_plane=h.max_dist_plane,
+               plane_threshold=h.plane_threshold)
+    win = h._window_rank(glob0)
+    fa = (win[0], win[1], torch.isfinite(win[1]))
+    rows0 = h._rows(glob0)
+    full = h._topk(glob0, h.k, rows0)
+    stale = h.pc_valid & (torch.cumsum(h.pc_valid.to(torch.int32), 0) <= h.budget)
+    idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:h.budget]
+    patch = h._topk(glob0[idx], h.k, (rows0[0][idx], rows0[1][idx]))
+    sel = (win, patch, idx, stale, full)
+
+    def k3_check(name, got, want):
+        """Gates agree on ≥ 99.5 %; n_abcd rtol 5e-3 / atol 5e-4 where both
+        are good; returns (max error, agreement)."""
+        agree = float((got[1] == want[1]).float().mean())
+        if agree < 0.995:
+            _fail(f"{name} gate agreement {agree:.4f} < 0.995")
+        both = got[1] & want[1]
+        return _close(f"{name} n_abcd", got[0][both], want[0][both], 5e-3, 5e-4), agree
+
+    # K3 fit_planes, the one-set entry, on the window set
     a = _once("K3", plane_kernel.fit_planes, lambda: plane_kernel.fit_planes(*fa, **fkw))
-    b = plane_kernel.fit_planes_plain(*fa, **fkw)
-    agree = float((a[1] == b[1]).float().mean())
-    if agree < 0.995:
-        _fail(f"K3 gate agreement {agree:.4f} < 0.995")
-    both = a[1] & b[1]
-    err = _close("K3 n_abcd", a[0][both], b[0][both], 5e-3, 5e-4)
+    err, agree = k3_check("K3", a, plane_kernel.fit_planes_plain(*fa, **fkw))
     # ~250 float32 operations a query (5-point moments, normal, gates)
     report("fit_planes", err, lambda: plane_kernel.fit_planes(*fa, **fkw),
            lambda: plane_kernel.fit_planes_plain(*fa, **fkw), _nbytes(*fa, *a),
-           250 * fa[0].shape[0], extra=f"(N={fa[0].shape[0]}, gate agreement {agree:.5f})")
+           250 * fa[0].shape[0],
+           launches=main_counts["fit_planes"] + main_counts["fit_planes_select"],
+           extra=f"(N={fa[0].shape[0]}, gate agreement {agree:.5f}; launches: the main path's "
+                 f"of this kernel, all through fit_planes_select)")
+
+    # K3 fit_planes_select — at each branch code bit for bit merge_fits of
+    # the three one-set launches on the card, within K3's bounds of its
+    # plain version, ONE CUDA kernel a call
+    n_st = int(stale.sum())
+    errs, dev3 = [], {}
+    for code, v in ((0, 0), (1, n_st), (2, h.budget + 1)):
+        viol = torch.tensor(v, dtype=torch.int32, device=dev)
+
+        def k3s():
+            return plane_kernel.fit_planes_select(*sel, viol, **fkw)
+
+        a = _once(f"K3 select (branch {code})", plane_kernel.fit_planes_select, k3s)
+        three = [plane_kernel.fit_planes(*fa, **fkw), plane_kernel.fit_planes(*patch, **fkw),
+                 plane_kernel.fit_planes(*full, **fkw)]
+        want = plane_kernel.merge_fits(*three, idx, stale, viol)
+        if not all(torch.equal(g, w) for g, w in zip(a, want)):
+            _fail(f"K3 select (branch {code}) differs from the merge of three one-set launches")
+        errs.append(k3_check(f"K3 select (branch {code})", a,
+                             plane_kernel.fit_planes_select_plain(*sel, viol, **fkw))[0])
+        dev3[code] = _device_ms(k3s, "fl_fit_planes")
+        n3 = _cuda_launches(torch, k3s, "fl_fit_planes")
+        if n3 != 1:
+            _fail(f"K3 select (branch {code}) ran {n3} CUDA kernels a call, not one")
+    viol1 = torch.tensor(n_st, dtype=torch.int32, device=dev)
+    N3, B3 = fa[0].shape[0], idx.shape[0]
+    # branch 1 (the patch taken): the window set, the patch, idx, stale and
+    # viol read, N fits
+    report("fit_planes_select", max(errs),
+           lambda: plane_kernel.fit_planes_select(*sel, viol1, **fkw),
+           lambda: plane_kernel.fit_planes_select_plain(*sel, viol1, **fkw),
+           _nbytes(win, patch, idx, stale, viol1, *a), 250 * N3,
+           extra=f"(N={N3}, B={B3}, branch 1 with {n_st} stale; device ms by branch code "
+                 f"{json.dumps({c: round(t, 5) if t else t for c, t in dev3.items()})}; bit-equal "
+                 f"to the merge of three one-set launches at codes 0-2, 1 CUDA kernel a call)",
+           kernel="fit_planes_select", prefix="fl_fit_planes")
 
     # K4 hstats — rtol 1e-5 of each entry's sum of term magnitudes: both
     # sides sum the same 10^4 float32 products in different orders, and the
@@ -1394,6 +1460,23 @@ def main() -> None:
     report("gain", err, lambda: gain.gain(g_HTH, g_HTh, g_P, g_R), k8_plain,
            4 * (144 + 12 + 276) + _nbytes(*a), 3e4, launches=split_counts["gain"],
            extra=f"({split_counts['gain']} launches in the split-body replay)")
+
+    # K5, K6 and K8 against their records, bit for bit: K5 the golden file
+    # recorded before the gain moved into gain.cuh, and the one-cluster K6
+    # (8 cases), K8 (4) and K5 (6 more) as the one-cluster K6 tree recorded
+    # them (tests/data/*.npz, inputs made on the host by tests/test_torch_cuda.py)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import test_torch_cuda as golden
+
+    for path, fn, pre in ((golden.GOLDEN, golden._golden_outputs, "k5_"),
+                          (golden.CLUSTER_GOLDEN, golden._cluster_golden_outputs, "")):
+        want, got = np.load(path), fn(dev)
+        keys = [k for k in want.files if k.startswith(pre)]
+        bad = [k for k in keys if got[k].tobytes() != want[k].tobytes()]
+        if bad:
+            _fail(f"{os.path.basename(path)}: {bad} differ from the record")
+        print(f"[smoke] golden: {len(keys)} arrays of {os.path.basename(path)} bit-equal "
+              f"({', '.join(sorted({k.split('_')[0] for k in keys}))})", flush=True)
 
     # K9 sort3 — all three outputs bit-equal to the plain version, on the
     # voxel sort (N = 32768) and the insert sort (N = 10000) of the

@@ -223,11 +223,29 @@ FL_DEV void fl_state_boxminus(const float* x, const float* x0, float* dx) {
 }
 
 // ------------------------------------------------------- block helpers
-// Block-parallel C(n×p) = op(A)(n×m) · op(B)(m×p), row-major with leading
-// dims; each output by one thread with k-ascending sums.  C must not alias.
+// A team: the block's first n threads (n a multiple of 32), which meet at
+// the named barrier `bar` (bar.sync bar, n) while the other warps go on.
+// FlTeam{blockDim.x, 0} is the whole block.
+struct FlTeam {
+  int n, bar;
+};
+
+FL_DEV void fl_bar_sync(int bar, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(n) : "memory");
+}
+// Counts the calling warp at barrier `bar` without waiting; its earlier
+// shared-memory writes are visible to the threads that wait there.
+FL_DEV void fl_bar_arrive(int bar, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(bar), "r"(n) : "memory");
+}
+FL_DEV void fl_sync(FlTeam t) { fl_bar_sync(t.bar, t.n); }
+
+// Team-parallel C(n×p) = op(A)(n×m) · op(B)(m×p), row-major with leading
+// dims; each output by one thread with k-ascending sums, so the bits do not
+// depend on the team's size.  C must not alias.  Ends on the team's barrier.
 FL_DEV void fl_blk_mm(float* C, const float* A, int lda, bool tA,
-                      const float* B, int ldb, bool tB, int n, int m, int p) {
-  for (int o = threadIdx.x; o < n * p; o += blockDim.x) {
+                      const float* B, int ldb, bool tB, int n, int m, int p, FlTeam team) {
+  for (int o = threadIdx.x; o < n * p; o += team.n) {
     int i = o / p, j = o % p;
     float acc = 0.0f;
     for (int k = 0; k < m; ++k) {
@@ -237,7 +255,7 @@ FL_DEV void fl_blk_mm(float* C, const float* A, int lda, bool tA,
     }
     C[i * p + j] = acc;
   }
-  __syncthreads();
+  fl_sync(team);
 }
 
 // ----------------------------------------------------- cluster reductions

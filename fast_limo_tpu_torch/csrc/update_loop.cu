@@ -38,7 +38,7 @@
 #include "iter_body.cuh"
 #include "plane_fit.cuh"
 
-#define FL_UL_THREADS 256
+#define FL_UL_THREADS FL_BODY_THREADS   // the body's eight warps (iter_body.cuh)
 #define FL_UL_CLUSTER 16   // blocks of the one cluster (PERF.md: measured against 8)
 #define FL_UL_WARPS (FL_UL_THREADS / 32)
 #define FL_BIG 3.0e38f
@@ -254,7 +254,7 @@ fl_update_loop_kernel(const float* __restrict__ X, int Np, const float* __restri
     // ---- the iteration body on the prior P (rank 0) ----
     if (rank == 0) {
       __syncthreads();
-      fl_iter_body(&w, inv_R, D);
+      fl_iter_body(&w, inv_R, D, false);
       // ---- convergence, boxminus to the prior, commit (rank 0) ----
       if (tid == 0) {
         float mx = 0.0f;

@@ -10,11 +10,12 @@ per-query staleness certificates prove a full re-gather could not differ.
 The whole loop over the window runs in the K6 kernel (``loop_pack``); the
 exact per-iteration path here (``stats``) is its fallback: window match
 when no query is stale, the stale queries re-resolved in a patch of at
-most ``stale_budget`` queries (K2 at k, K3), or a full re-match.  The
-branch is chosen on the device from the stale count: all three run on
-fixed shapes, their kernels behind active flags, and ``torch.where`` keeps
-the chosen one (``_rematch_counted``).  K2 runs on the map table's rows by
-index (``knn_rows.topk_from_table``), so no block-row gather is
+most ``stale_budget`` queries (K2 at k), or a full re-match (K2 at k).
+The branch is chosen on the device from the stale count: K2's two
+resolves launch behind active flags, and ONE K3 launch
+(``plane_kernel.fit_planes_select``) fits every query on the row of the branch
+the count selects (``_rematch_counted``).  K2 runs on the map table's rows
+by index (``knn_rows.topk_from_table``), so no block-row gather is
 materialised.
 """
 
@@ -27,6 +28,7 @@ from fast_limo_tpu_torch.models import state as st
 from fast_limo_tpu_torch.ops import hstats as hstats_op
 from fast_limo_tpu_torch.ops import knn_rows
 from fast_limo_tpu_torch.ops import plane as plane_op
+from fast_limo_tpu_torch.ops import plane_kernel
 from fast_limo_tpu_torch.ops import so3
 from fast_limo_tpu_torch.ops import update_loop as ul_op
 
@@ -90,11 +92,6 @@ class HModel:
         return knn_rows.topk_from_table(self.m.ptable, *rows, glob, E=mp.E, B=self.m.bucket,
                                         k=kk, active=active)
 
-    def _fit(self, nbrs, sq, vld, active=None):
-        return plane_op.fit_planes(nbrs, sq, vld, num_match_points=self.k,
-                                   max_dist_plane=self.max_dist_plane,
-                                   plane_threshold=self.plane_threshold, active=active)
-
     def _dyn_gate(self, good, n_abcd, glob):
         """Robust residual gate: reject matches beyond gate·(two-pass robust
         mean |residual|), floored at 5 cm."""
@@ -135,39 +132,15 @@ class HModel:
         cert_b = kth_d < self.voxel_size - torch.clamp(leave, min=0.0)
         return self.pc_valid & ~(cert_a & (b0_same | cert_b))
 
-    def _window_fit(self, ranked, active=None):
-        sel_nbrs, sel_sq = ranked
-        return self._fit(sel_nbrs, sel_sq, torch.isfinite(sel_sq), active)
-
-    def _full_fit(self, glob, rows, active=None):
-        """FULL re-match fit at the given pose (exact by construction)."""
-        return self._fit(*self._topk(glob, self.k, rows, active), active)
-
-    def _patched_fit(self, glob, rows, fit_w, stale, active=None):
-        """The window fit with the ≤ budget stale queries re-resolved (the
-        stale ones first, in query order, as lax.top_k picks them)."""
-        n_w, good_w = fit_w
-        idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:self.budget]
-        sel_ok = stale[idx]
-        n_s, good_s = self._fit(*self._topk(glob[idx], self.k, (rows[0][idx], rows[1][idx]),
-                                            active), active)
-        n_m = n_w.clone()
-        good_m = good_w.clone()
-        n_m[idx] = torch.where(sel_ok[:, None], n_s, n_w[idx])
-        good_m[idx] = torch.where(sel_ok, good_s, good_w[idx])
-        return n_m, good_m
-
     def _rematch_counted(self, glob, active=None):
         """``rematch`` plus the stale count (() int32) that chose its branch.
 
-        All three branches run on fixed shapes and ``torch.where`` keeps the
-        chosen one — the JAX ``cond`` chain, decided on the device: the
-        window fit (K3, flag ``active``), the patched fit (K2 on the
-        ``budget`` first queries by staleness, K3; flag ``active & 0 < viol
-        ≤ budget``) and the full re-match (K2 on every query, K3; flag
-        ``active & viol > budget``).  A clear flag makes a kernel return at
-        once, so the branches not taken cost launches and glue, not a
-        map-row gather."""
+        The JAX ``cond`` chain, decided on the device: K2 resolves the
+        ``budget`` first queries by staleness (flag ``active & 0 < viol ≤
+        budget``) and every query (flag ``active & viol > budget``); a clear
+        flag makes it return at once.  Then one K3 launch (flag ``active``)
+        fits each query on its window row, its patched row if it is stale
+        and the patch is taken, or its full row."""
         ranked = self._window_rank(glob)
         stale = self._stale_mask(glob, ranked[1])
         viol = torch.sum(stale, dtype=torch.int32)
@@ -176,11 +149,14 @@ class HModel:
         if active is not None:
             on_patch, on_full = active & on_patch, active & on_full
         rows = self._rows(glob)
-        fit_w = self._window_fit(ranked, active)
-        fit_p = self._patched_fit(glob, rows, fit_w, stale, on_patch)
-        fit_f = self._full_fit(glob, rows, on_full)
-        n_abcd, good = (torch.where(some, torch.where(few, p, f), w)
-                        for w, p, f in zip(fit_w, fit_p, fit_f))
+        # the stale queries first, in query order, as lax.top_k picks them
+        idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:self.budget]
+        patch = self._topk(glob[idx], self.k, (rows[0][idx], rows[1][idx]), on_patch)
+        full = self._topk(glob, self.k, rows, on_full)
+        n_abcd, good = plane_kernel.fit_planes_select(
+            ranked, patch, idx, stale, full, viol, num_match_points=self.k,
+            max_dist_plane=self.max_dist_plane, plane_threshold=self.plane_threshold,
+            active=active)
         self._viol = viol
         return (*self._finish(n_abcd, good, glob), viol)
 

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "fl_knn_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "fl_masked_topk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "fl_fit_planes": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+    "fl_fit_planes_select": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_P] * 4,
     "fl_hstats": [_P, _I, _P, _I, _P, _P, _P],
     "fl_gain": [_P, _P, _P, _F, _P, _P, _P, _P],
     "fl_update_body": [_P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P],

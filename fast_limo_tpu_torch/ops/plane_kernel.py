@@ -9,6 +9,12 @@ Gated-out rows are exactly zero (consumers mask by ``good``).  An optional
 active flag (a () bool device tensor) lets the exact update loop launch
 the kernel on every scan: a clear flag makes it return at once, and the
 caller discards its outputs.
+
+``fit_planes_select`` is the exact update loop's re-match in one launch of
+the same kernel: the window fit, the stale patch and the full re-match
+(the JAX package's ``lax.cond`` chain), each query fitted only on the row
+that the device's stale count selects (``fit_planes_select_plain``: three
+``fit_planes_plain`` calls and ``merge_fits``).
 """
 
 from __future__ import annotations
@@ -162,3 +168,80 @@ def fit_planes(nbrs, sq_dists, nbr_valid, *, num_match_points: int,
 
 
 fit_planes.launches = 0
+
+
+def merge_fits(fit_w, fit_p, fit_f, idx, stale, viol):
+    """The re-match's result from its three fits, ``(n_abcd, good)`` each:
+    the window fit (N rows), the patch's fit of the queries ``idx`` (B,)
+    (only those that are ``stale`` (N,) are taken) and the full fit (N
+    rows); the device count ``viol`` (() int32) picks window (0), patched
+    (≤ B) or full."""
+    n_w, good_w = fit_w
+    n_s, good_s = fit_p
+    sel_ok = stale[idx]
+    n_m, good_m = n_w.clone(), good_w.clone()
+    n_m[idx] = torch.where(sel_ok[:, None], n_s, n_w[idx])
+    good_m[idx] = torch.where(sel_ok, good_s, good_w[idx])
+    some, few = viol > 0, viol <= idx.shape[0]
+    return tuple(torch.where(some, torch.where(few, p, f), w)
+                 for w, p, f in zip(fit_w, (n_m, good_m), fit_f))
+
+
+def fit_planes_select_plain(win, patch, idx, stale, full, viol, *, num_match_points: int,
+                            max_dist_plane: float, plane_threshold: float):
+    kw = dict(num_match_points=num_match_points, max_dist_plane=max_dist_plane,
+              plane_threshold=plane_threshold)
+    nbrs_w, sq_w = win
+    return merge_fits(fit_planes_plain(nbrs_w, sq_w, torch.isfinite(sq_w), **kw),
+                      fit_planes_plain(*patch, **kw), fit_planes_plain(*full, **kw),
+                      idx, stale, viol)
+
+
+def _launch_select(win, patch, idx, stale, full, viol, active, *, num_match_points,
+                   max_dist_plane, plane_threshold):
+    nbrs_w, sq_w = win
+    N, k, _ = nbrs_w.shape
+    B = idx.shape[0]
+    dispatch.require(nbrs_w, "nbrs_w")
+    dispatch.require(sq_w, "sq_w", shape=(N, k))
+    for name, (nb, sq, vl), rows in (("patch", patch, B), ("full", full, N)):
+        dispatch.require(nb, f"nbrs of {name}", shape=(rows, k, 3))
+        dispatch.require(sq, f"sq of {name}", shape=(rows, k))
+        dispatch.require(vl, f"valid of {name}", dtype=torch.bool, shape=(rows, k))
+    dispatch.require(idx, "idx", dtype=torch.int64, shape=(B,))
+    dispatch.require(stale, "stale", dtype=torch.bool, shape=(N,))
+    dispatch.require(viol, "viol", dtype=torch.int32, shape=())
+    if B > N:
+        raise ValueError(f"idx has {B} rows for {N} queries")
+    n_abcd = torch.empty((N, 4), dtype=torch.float32, device=nbrs_w.device)
+    good = torch.empty((N,), dtype=torch.bool, device=nbrs_w.device)
+    err = dispatch.library().fl_fit_planes_select(
+        dispatch.ptr(nbrs_w), dispatch.ptr(sq_w), *(dispatch.ptr(t) for t in patch),
+        dispatch.ptr(idx), dispatch.ptr(stale), *(dispatch.ptr(t) for t in full),
+        dispatch.ptr(viol), N, B, k, int(num_match_points), float(max_dist_plane),
+        float(plane_threshold), float(plane_threshold) * float(plane_threshold),
+        dispatch.flag(active), dispatch.ptr(n_abcd), dispatch.ptr(good), dispatch.stream())
+    dispatch.check(err, "fit_planes_select")
+    fit_planes_select.launches += 1
+    return n_abcd, good
+
+
+def fit_planes_select(win, patch, idx, stale, full, viol, *, num_match_points: int,
+                      max_dist_plane: float, plane_threshold: float, active=None):
+    """The re-match's fit in one launch: ``win`` = (nbrs (N,k,3), sq (N,k);
+    valid where sq is finite), ``patch`` = (nbrs (B,k,3), sq, valid) of the
+    queries ``idx`` (B,) int64, ``stale`` (N,) bool, ``full`` = (nbrs
+    (N,k,3), sq, valid), ``viol`` () int32 → ``(n_abcd (N,4), good (N,))``
+    as ``merge_fits`` of the three fits; unspecified outputs where
+    ``active`` (() bool) is clear on the card."""
+    kw = dict(num_match_points=num_match_points,
+              max_dist_plane=float(max_dist_plane),
+              plane_threshold=float(plane_threshold))
+    if not dispatch.on_cuda(win[0]):
+        return fit_planes_select_plain(win, patch, idx, stale, full, viol, **kw)
+    c = lambda ts: tuple(t.contiguous() for t in ts)
+    return _launch_select(c(win), c(patch), idx.contiguous(), stale.contiguous(), c(full),
+                          viol.contiguous(), active, **kw)
+
+
+fit_planes_select.launches = 0

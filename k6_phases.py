@@ -6,18 +6,26 @@ The script copies a tree's kernel sources into
 build/k6_phases/<tag>/csrc, inserts a %globaltimer stamp before every
 ``// ---- <phase> ----`` section comment of the kernel and of the
 iteration body it includes (iter_body.cuh, gain.cuh; thread 0 of block 0
-stamps after a __syncthreads, so the time between two stamps is the time
-block 0 — for a cluster kernel, rank 0, which waits for the others at each
-phase's cluster barrier — spent in that phase), builds the copy beside the
-tree's plain library, replays a few scans of the bench corridor at
-presets.kitti_like_cfg through the tree's own Localizer, captures K6's
-arguments on a steady scan and launches K6 on them ``--reps`` times
-through the tree's wrapper.  It prints, per launch: the plain and the
-instrumented kernel's device time (torch.profiler), and the stamped time
-of each phase.  The stamps add one block barrier a phase, so the
-instrumented kernel runs a little longer than the plain one; shares are of
-the stamped total.  It also times K4 (csrc/hstats.cu) and one ``H.T @ H``
-on a 10112-point statistics pack, device time, for the cluster-size choice.
+stamps after a barrier, so the time between two stamps is the time block
+0 — for a cluster kernel, rank 0, which waits for the others at each
+phase's cluster barrier — spent in that phase).  Where the body runs on a
+team of warps beside a guard warp (a header that uses FlTeam), the body's
+stamps meet at the team's barrier, and every ``// ==== <phase> ====``
+comment of the guard warp's code gets a stamp of its own, taken by the
+guard warp's lane 0 (``==== join ====`` closes them).  The body's
+critical path is then thread 0's time from the body's first stamp to the
+end of the body, the join's wait for the guard warp included.  The copy
+is built beside the tree's plain library, a few scans of the bench
+corridor at presets.kitti_like_cfg are replayed through the tree's own
+Localizer, K6's arguments are captured on a steady scan and K6 is
+launched on them ``--reps`` times through the tree's wrapper.  It prints,
+per launch: the plain and the instrumented kernel's device time
+(torch.profiler), the stamped time of each phase, the guard warp's
+phases, and the body's critical path.  The stamps add one barrier a
+phase, so the instrumented kernel runs a little longer than the plain
+one; shares are of the stamped total.  It also times K4 (csrc/hstats.cu)
+and one ``H.T @ H`` on a 10112-point statistics pack, device time, for
+the cluster-size choice.
 
 Usage: python3 k6_phases.py [--tree DIR] [--cluster C] [--reps N]
   --tree     repository root whose fast_limo_tpu_torch is measured (default:
@@ -50,27 +58,53 @@ __device__ __forceinline__ unsigned long long fl_ph_now() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
+#define FL_PH_STAMP(k)                                                    \
+  if (threadIdx.x == 0 && blockIdx.x == 0) {                              \
+    unsigned long long t_ = fl_ph_now();                                  \
+    if (fl_ph_cur >= 0) fl_ph_ns[fl_ph_cur] += t_ - fl_ph_last;           \
+    fl_ph_last = t_;                                                      \
+    fl_ph_cur = (k);                                                      \
+  }
 #define FL_PH(k)                                                          \
   do {                                                                    \
     __syncthreads();                                                      \
-    if (threadIdx.x == 0 && blockIdx.x == 0) {                            \
+    FL_PH_STAMP(k)                                                        \
+  } while (0)
+// a stamp of the body's team (the FlTeam `team` in scope)
+#define FL_PH_TEAM(k)                                                     \
+  do {                                                                    \
+    fl_sync(team);                                                        \
+    FL_PH_STAMP(k)                                                        \
+  } while (0)
+// a stamp of the guard warp (the block's last), by its lane 0
+#define FL_PG_MAX 8
+__device__ unsigned long long fl_pg_ns[FL_PG_MAX];
+__device__ unsigned long long fl_pg_last;
+__device__ int fl_pg_cur = -1;
+#define FL_PG(k)                                                          \
+  do {                                                                    \
+    __syncwarp();                                                         \
+    if (threadIdx.x == blockDim.x - 32 && blockIdx.x == 0) {              \
       unsigned long long t_ = fl_ph_now();                                \
-      if (fl_ph_cur >= 0) fl_ph_ns[fl_ph_cur] += t_ - fl_ph_last;         \
-      fl_ph_last = t_;                                                    \
-      fl_ph_cur = (k);                                                    \
+      if (fl_pg_cur >= 0) fl_pg_ns[fl_pg_cur] += t_ - fl_pg_last;         \
+      fl_pg_last = t_;                                                    \
+      fl_pg_cur = (k);                                                    \
     }                                                                     \
   } while (0)
 extern "C" int fl_ph_read(unsigned long long* out) {
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, fl_ph_ns, sizeof(fl_ph_ns));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out + FL_PH_MAX, fl_pg_ns, sizeof(fl_pg_ns));
   unsigned long long z[FL_PH_MAX] = {0};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fl_ph_ns, z, sizeof(z));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fl_ph_ns, z, sizeof(fl_ph_ns));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fl_pg_ns, z, sizeof(fl_pg_ns));
   return (int)e;
 }
 """
 
 
 _SECTION = re.compile(r"(\s*)// ---- (.+?) ----\s*$")
+_GUARD = re.compile(r"(\s*)// ==== (.+?) ====\s*$")
 
 
 def instrument(src: str):
@@ -96,16 +130,26 @@ def instrument(src: str):
     return "\n".join(out) + "\n", names
 
 
-def instrument_header(src: str, names: list):
+def instrument_header(src: str, names: list, body: list, gnames: list):
     """A stamp before every section comment of a header the kernel
     includes (the iteration body's), compiled only where the kernel's
-    source defined the stamps first; appends the phase names."""
+    source defined the stamps first: the team's stamp where the header
+    runs its body on a team (FlTeam), a guard-warp stamp before every
+    ``==== <phase> ====`` comment.  Appends the phase names (body: their
+    indices among names; gnames: the guard warp's)."""
+    mark = "FL_PH_TEAM" if "FlTeam" in src else "FL_PH"
     out = []
     for ln in src.splitlines():
-        m = _SECTION.match(ln)
+        m, g = _SECTION.match(ln), _GUARD.match(ln)
         if m:
             names.append(m.group(2))
-            out += ["#ifdef FL_PH", f"{m.group(1)}FL_PH({len(names) - 1});", "#endif"]
+            body.append(len(names) - 1)
+            out += ["#ifdef FL_PH", f"{m.group(1)}{mark}({len(names) - 1});", "#endif"]
+        elif g:
+            k = -1 if g.group(2) == "join" else len(gnames)
+            if k >= 0:
+                gnames.append(g.group(2))
+            out += ["#ifdef FL_PH", f"{g.group(1)}FL_PG({k});", "#endif"]
         out.append(ln)
     return "\n".join(out) + "\n"
 
@@ -160,12 +204,13 @@ def main() -> None:
         src, names = instrument(f.read())
     with open(path, "w") as f:
         f.write(src)
+    body, gnames = [], []
     for name in ("iter_body.cuh", "gain.cuh"):
         with open(os.path.join(csrc, name)) as f:
-            text = instrument_header(f.read(), names)
+            text = instrument_header(f.read(), names, body, gnames)
         with open(os.path.join(csrc, name), "w") as f:
             f.write(text)
-    if len(names) > 32:
+    if len(names) > 32 or len(gnames) > 8:
         raise RuntimeError("more phases than stamps")
     for name in ("update_loop.cu", "hstats.cu") if args.cluster else ():
         p = os.path.join(csrc, name)
@@ -202,19 +247,26 @@ def main() -> None:
 
     plain_ms = _device_ms(torch, k6, args.reps, "fl_update_loop")
     dispatch._lib = inst_lib
-    buf = (ctypes.c_ulonglong * 32)()
+    buf = (ctypes.c_ulonglong * 40)()
     k6()
     inst_lib.fl_ph_read(buf)
     inst_ms = _device_ms(torch, k6, args.reps, "fl_update_loop")
     inst_lib.fl_ph_read(buf)          # the profiler's reps plus its warm-up
     n_iters = int(k6()[2][0])
     ns = [buf[i] / (args.reps + 1) for i in range(len(names))]
+    gns = [buf[32 + i] / (args.reps + 1) for i in range(len(gnames))]
     total = sum(ns)
     phases = {nm: {"us": round(v / 1e3, 3), "share": round(v / total, 4)}
               for nm, v in zip(names, ns)}
+    guard = {nm: round(v / 1e3, 3) for nm, v in zip(gnames, gns)}
+    body_us = sum(ns[i] for i in body) / 1e3
     Np = a[0].shape[0] // (5 + 3 * kw["window"].W)
     for nm, v in phases.items():
         print(f"[k6] {nm:60s} {v['us']:10.3f} us/launch  {100 * v['share']:5.1f} %")
+    for nm, us in guard.items():
+        print(f"[k6] guard warp: {nm:48s} {us:10.3f} us/launch")
+    print(f"[k6] body critical path (thread 0, the body's first stamp to its end, all "
+          f"iterations): {body_us:.3f} us/launch, {body_us / max(n_iters, 1):.3f} an iteration")
     print(f"[k6] device ms/launch: plain {plain_ms:.4f} | instrumented {inst_ms:.4f} | stamped "
           f"total {total / 1e6:.4f} (Np={Np}, n_iters {n_iters}, reps {args.reps})")
 
@@ -238,7 +290,8 @@ def main() -> None:
     print(smi)
     print(json.dumps({"tree": tree, "cluster": args.cluster or "tree's", "Np": Np,
                       "n_iters": n_iters, "k6_device_ms": plain_ms,
-                      "k6_instrumented_ms": inst_ms, "phases": phases,
+                      "k6_instrumented_ms": inst_ms, "phases": phases, "guard_us": guard,
+                      "body_critical_path_us": round(body_us, 3),
                       "k4_device_ms": k4_ms, "hth_device_ms": mm_ms, "card": smi}))
 
 

@@ -26,7 +26,12 @@ bit-equal on two launches.  K5 is held bit for bit, and K6 at its
 tolerances, to outputs recorded before the gain moved into
 ``csrc/gain.cuh`` (``tests/data/torch_k5k6_golden.npz``;
 ``python tests/test_torch_cuda.py --write-golden <path>`` records such a
-file from whatever package is importable).  Also: the Localizer lands on
+file from whatever package is importable); the one-cluster K6 (eight
+settings), K8 (four cases) and K5 (six more inputs) bit for bit to the
+outputs the one-cluster K6 tree recorded before the body's schedule
+changed (``tests/data/torch_k6_cluster_golden.npz``; ``--write-cluster-golden
+<path>``).  K3's select entry is bit for bit the merge of three one-set
+launches at every branch code.  Also: the Localizer lands on
 the card by default, a checkpoint round trip on the card, and the split
 transfer (payload copied on a side stream at arrival) gives the
 trajectory of synchronous copies bit for bit.
@@ -672,7 +677,113 @@ def test_slam_defaults_to_the_card(dev):
     assert len(slam.keyframes) >= 1 and np.isfinite(slam.positions()).all()
 
 
+# ------------------------------------ K5 / K6 / K8 golden outputs, cluster K6
+
+CLUSTER_GOLDEN = os.path.join(os.path.dirname(GOLDEN), "torch_k6_cluster_golden.npz")
+K6_CASES = [(N, gate, ee) for N in (1024, 10000) for gate in (0.0, 4.0) for ee in (True, False)]
+# K5 beyond the golden file's one input: HᵀH of tests/test_gain.py's cases
+# and two whose pose head is degenerate, so the guard's projector acts
+# (a zero column: the eigenvalue product under 1e-20; a weak column: one
+# eigenvalue under D with a non-zero product)
+K5_CASES = {**GAIN_CASES, "zero_head_dims": {"zero_dims": (0, 4)}, "weak_head_dim": {}}
+
+
+def _k5_case(dev, name, i):
+    rng = np.random.default_rng(100 + i)
+    HTH, HTh, P = _gain_case(rng, **K5_CASES[name])
+    if name == "weak_head_dim":
+        s = np.ones(gain.M)
+        s[3] = 1e-2
+        HTH, HTh = HTH * np.outer(s, s), HTh * s
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    x = st.identity(torch.float32, gravity=9.81, device=dev)
+    x = x._replace(pos=t([0.05, -0.03, 0.02]), vel=t([1.0, 0.2, 0.0]))
+    xi = st.boxplus(x, t(rng.normal(0.0, 1e-2, 23)))
+    return t(HTH), t(HTh), t(P), xi, x
+
+
+def _cluster_golden_outputs(dev):
+    """K6 (the one-cluster kernel) on ``_golden_inputs`` at K6_CASES, K8 on
+    GAIN_CASES and K5 on K5_CASES: the outputs held bit for bit."""
+    out = {}
+    for N, gate, ee in K6_CASES:
+        pack, P, x, win, _, _ = _golden_inputs(dev, N=N, gate=gate)
+        o = update_loop.update_loop(pack, P, x, 1e-3, 5.0, 1e-3, max_iters=3,
+                                    estimate_extrinsics=ee, window=win, with_aux=True)
+        tag = f"k6_{N}_{gate:g}_{int(ee)}"
+        out.update({f"{tag}_x": st.as_vector(o[0]), f"{tag}_P": o[1], f"{tag}_aux": o[6]})
+    for name in GAIN_CASES:
+        HTH, HTh, P = [torch.tensor(a, dtype=torch.float32, device=dev)
+                       for a in _gain_case(np.random.default_rng(42), **GAIN_CASES[name])]
+        for nm, v in zip(("Kx", "Kh", "K"), gain.gain(HTH, HTh, P, 1e-3)):
+            out[f"k8_{name}_{nm}"] = v
+    for i, name in enumerate(K5_CASES):
+        xn, Pf, dxo, gm, me = update_body.update_body(*_k5_case(dev, name, i), 1e-3, 5.0)
+        out.update({f"k5_{name}_x": st.as_vector(xn), f"k5_{name}_P": Pf,
+                    f"k5_{name}_dx": dxo, f"k5_{name}_s": torch.stack([gm, me])})
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def test_k5_k6_k8_bit_equal_to_cluster_golden(dev):
+    """K6 (one cluster) at K6_CASES, K8 on GAIN_CASES and K5 on K5_CASES are
+    the outputs the one-cluster K6 tree recorded, bit for bit (the body's
+    schedule and the elimination's spread over the block keep every float
+    operation of the serial loops in its order)."""
+    want = np.load(CLUSTER_GOLDEN)
+    got = _cluster_golden_outputs(dev)
+    assert set(got) == set(want.files)
+    bad = [k for k, v in got.items() if v.tobytes() != want[k].tobytes()]
+    assert not bad, bad
+
+
+# ------------------------------------------------- K3, the select entry
+
+def _select_case(h, n_stale):
+    """The re-match's three sets at the predicted pose of a captured scan:
+    window rank, K2 on the idx rows and on every query (no flag, so both
+    do work), ``n_stale`` valid queries marked stale."""
+    glob = h.glob0
+    win = h._window_rank(glob)
+    rows = h._rows(glob)
+    stale = h.pc_valid & (torch.cumsum(h.pc_valid.to(torch.int32), 0) <= n_stale)
+    idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:h.budget]
+    patch = h._topk(glob[idx], h.k, (rows[0][idx], rows[1][idx]))
+    full = h._topk(glob, h.k, rows)
+    return win, patch, idx, stale, full
+
+
+def test_k3_select_is_the_merge_of_three_launches(scan):
+    """fit_planes_select (one launch) is bit for bit ``merge_fits`` of the
+    three one-set launches at every branch code; under a clear flag it
+    returns at once and counts one launch."""
+    _, h, _ = scan
+    kw = dict(num_match_points=h.k, max_dist_plane=h.max_dist_plane,
+              plane_threshold=h.plane_threshold)
+    for n_stale, viol in ((0, 0), (1, 1), (h.budget, h.budget), (h.budget, h.budget + 1)):
+        win, patch, idx, stale, full = _select_case(h, n_stale)
+        viol = torch.tensor(viol, dtype=torch.int32, device=h.pc.device)
+        got = _once(plane_kernel.fit_planes_select, lambda: plane_kernel.fit_planes_select(
+            win, patch, idx, stale, full, viol, **kw))
+        fits = [plane_kernel.fit_planes(win[0], win[1], torch.isfinite(win[1]), **kw),
+                plane_kernel.fit_planes(*patch, **kw), plane_kernel.fit_planes(*full, **kw)]
+        want = plane_kernel.merge_fits(*fits, idx, stale, viol)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), int(viol)
+        plain = plane_kernel.fit_planes_select_plain(win, patch, idx, stale, full, viol, **kw)
+        assert float((got[1] == plain[1]).float().mean()) >= 0.995
+        both = got[1] & plain[1]
+        _close(got[0][both], plain[0][both], 5e-3, 5e-4)
+    for flag in (False, True):
+        f = torch.tensor(flag, device=h.pc.device)
+        out = _once(plane_kernel.fit_planes_select, lambda: plane_kernel.fit_planes_select(
+            win, patch, idx, stale, full, viol, **kw, active=f))
+        torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(out, got))   # a set flag: the bits of none
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--write-golden":
         np.savez(sys.argv[2], **_golden_outputs(torch.device("cuda")))
         print("golden →", sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--write-cluster-golden":
+        np.savez(sys.argv[2], **_cluster_golden_outputs(torch.device("cuda")))
+        print("cluster golden →", sys.argv[2])

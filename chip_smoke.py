@@ -32,7 +32,9 @@ Phases (each prints its own lines):
 5. kernels  — every kernel's public wrapper against its plain PyTorch
               version on the card, on inputs captured from phases 3-4 and,
               for K8, from phase 8, which therefore runs before this one
-              (K2 on the captured window resolve, its plain version the
+              (K1 on the frame sources the scan step passed, its plain
+              version on the table and scalars built in plain torch, ONE
+              CUDA kernel a call; K2 on the captured window resolve, its plain version the
               gather of the map rows, then the plain top-k; K3's one-set
               entry on the captured scan's window set, and its select
               entry on the window, a real stale patch and a real full
@@ -61,11 +63,18 @@ Phases (each prints its own lines):
 6. map      — the long-session surface at the same configuration:
               (a) radius_search on the main replay's final map, 10 000
                   queries at four settings (K2 with V = 8, V = 27, k = 64;
-                  K7 at r = 3 m), 256 of them held to a brute force over
-                  the stored points; K2 and K7 must launch;
-              (b) K7 and K2 at k = 64 against their
-                  plain versions on a captured chunk (sq/valid bit-equal),
-                  with times: their kernel rows;
+                  K7's table entry at r = 3 m), 256 of them held to a brute
+                  force over the stored points; K2 must launch, and the
+                  3 m call must launch K7's table entry exactly once,
+                  no dense K7 and no candidate decode (cands_from_rows);
+                  that call's wall (p50 of 7, min, max) and device time
+                  (the sum of its CUDA ops, K7's part);
+              (b) K7's table entry on the 3 m call's inputs, the dense K7
+                  on its first 381 queries decoded explicitly (gather +
+                  cands_from_rows), and K2 at k = 64, against their plain
+                  versions (K7: sq, valid and nbrs bit-equal, invalid tail
+                  included; K2: sq/valid bit-equal), with times: their
+                  kernel rows;
               (c) an eviction replay (40 scans, evict_radius 30 m,
                   evict_occupancy 0.002): an eviction must drop the map's
                   point count, ATE < 0.15 m;
@@ -111,9 +120,17 @@ Phases (each prints its own lines):
               (no port line may be named).
 10. result  — the card's name and power limit, the kernels JSON line (K1-K9,
               K2 twice: the main path's window resolve and the map path's
-              k = 64; K9 twice), then the final status line.
+              k = 64; K7 twice: the dense entry and the table entry; K9
+              twice), then the final status line.
 
 Usage: python3 chip_smoke.py [--scans N] [--profile]
+       python3 chip_smoke.py --compare [--tree DIR] [--out A.npz] [--against B.npz]
+--compare runs phase 3's replay and times phase 6 (a)'s four
+radius_search calls (wall p50 of 7 with min and max; device sum, K7's
+part, device ops and cudaLaunchKernel a call) with the port of the
+checkout at --tree (default: this one), checking nothing: run it on a
+`git archive` of another commit and on this one, in one call, to compare
+the two.
 Exits non-zero on any failed check; there is no CPU path.
 """
 
@@ -178,8 +195,57 @@ def _device_ms(fn, prefix=None, reps: int = 5):
     ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     if not ev:
         return None
-    mine = [e for e in ev if prefix is None or e.key.startswith(prefix)]
+    mine = [e for e in ev if prefix is None or _kname(e.key).startswith(prefix)]
     return sum(e.self_device_time_total for e in mine) / reps / 1e3
+
+
+def _query_timing(torch, call, reps: int = 3) -> dict:
+    """One map query's wall ms (host clock between synchronises, p50 of 7
+    after a warm-up, with min and max) and, from torch.profiler over reps
+    calls, a call's device ms (the sum of its CUDA ops), the part in K7's
+    kernels (names holding "masked_topk"), its device ops and its
+    cudaLaunchKernel calls (device figures None if the profiler records no
+    device op)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    stats = prof.key_averages()
+    dev = [e for e in stats if e.device_type.name == "CUDA"]
+    host = [e for e in stats if e.device_type.name == "CPU"]
+
+    def dsum(es):
+        return sum(e.self_device_time_total for e in es) / reps / 1e3 if dev else None
+
+    return {"wall_p50": float(np.median(walls)), "wall_min": min(walls),
+            "wall_max": max(walls), "device_ms": dsum(dev),
+            "k7_device_ms": dsum([e for e in dev if "masked_topk" in e.key]),
+            "device_ops": sum(e.count for e in dev) / reps,
+            "cudaLaunchKernel": sum(e.count for e in host
+                                    if e.key.startswith("cudaLaunchKernel")) / reps}
+
+
+def _query_line(name, t) -> str:
+    return (f"{name}: wall p50 {t['wall_p50']:.3f} ms (min {t['wall_min']:.3f}, max "
+            f"{t['wall_max']:.3f}, 7 runs) | device {_fmt(t['device_ms'])}, of it K7 "
+            f"{_fmt(t['k7_device_ms'])} | {t['device_ops']:.0f} device ops, "
+            f"{t['cudaLaunchKernel']:.0f} cudaLaunchKernel a call")
+
+
+def _kname(key: str) -> str:
+    """A profiler kernel name without the "void " that a template's
+    demangled name starts with."""
+    return key[5:] if key.startswith("void ") else key
 
 
 _PORT = os.sep + "fast_limo_tpu_torch" + os.sep
@@ -257,15 +323,19 @@ def _nbytes(*objs) -> int:
                else _nbytes(*o) if isinstance(o, (tuple, list)) else 0 for o in objs)
 
 
-def _k2_work(row_idx, nc, q, out, d2, E):
-    """K2's data-dependent work: every row's four meta planes, the
-    coordinates of the filled slots of wanted blocks, the row indices and
-    the outputs; 8 operations a distance."""
+def _table_work(ptable, row_idx, nc, q, out, d2, E):
+    """The work of a top-k on the map table's rows (K2, K7's table entry):
+    the four meta planes of every distinct row the queries name, the
+    coordinates of those rows' filled slots, the row indices, block
+    coordinates, queries and outputs, each read or written once; 8
+    operations a valid (query, candidate) distance."""
     import torch
 
+    rows = torch.unique(row_idx.long())
+    filled = int(ptable[rows, 3 * E:4 * E].sum())
     n_valid = int(torch.isfinite(d2).sum())
-    N, V = row_idx.shape
-    return N * V * 4 * E * 4 + 12 * n_valid + _nbytes(row_idx, nc, q, *out), 8 * n_valid
+    return (rows.numel() * 4 * E * 4 + 12 * filled + _nbytes(row_idx, nc, q, *out),
+            8 * n_valid)
 
 
 def _bound(nbytes: float, ops: float):
@@ -390,34 +460,50 @@ def _brute_check(torch, name, stored, q, r, kmax, res):
     return float(n_want.float().mean())
 
 
+def _map_queries(torch, m, dev):
+    """The stored points of map m and 10 000 queries within 0.5 m of them
+    (seed 5): the map phase's queries."""
+    from fast_limo_tpu_torch.utils import checkpoint
+
+    stored = checkpoint.map_points(m)
+    rng = np.random.default_rng(5)
+    pick = rng.choice(len(stored), 10000, replace=len(stored) < 10000)
+    q = torch.tensor(np.float32(stored[pick] + rng.uniform(-0.5, 0.5, (10000, 3))), device=dev)
+    return stored, q
+
+
+def _radius_settings(vox):
+    """The map phase's (radius, max_results): K2 with V = 8, V = 27 at k = 16
+    and 64, K7's table entry at 3 m."""
+    return [(0.9 * vox, 16), (1.9 * vox, 16), (1.9 * vox, 64), (3.0, 16)]
+
+
 def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
-    """Phase 6: radius_search (K2, K7) on the main replay's final map, K7
-    and K2 at k = 64 against their plain versions, an eviction replay and a
-    checkpoint/resume."""
+    """Phase 6: radius_search (K2, K7's table entry) on the main replay's
+    final map, K7's two entries and K2 at k = 64 against their plain
+    versions, an eviction replay and a checkpoint/resume."""
     import torch
 
     from fast_limo_tpu_torch.io import synthetic
     from fast_limo_tpu_torch.models import mapper
     from fast_limo_tpu_torch.models.localizer import Localizer
     from fast_limo_tpu_torch.ops import dispatch, knn, knn_rows
-    from fast_limo_tpu_torch.utils import checkpoint, presets
+    from fast_limo_tpu_torch.utils import presets
 
     def counts():
         return {k: w[0].launches for k, w in wrappers.items()}
 
     # (a) radius_search at four settings on the final map of phase 3
     m, vox = loc.state.map, cfg.map_voxel_size
-    stored = checkpoint.map_points(m)
-    rng = np.random.default_rng(5)
-    pick = rng.choice(len(stored), 10000, replace=len(stored) < 10000)
-    q = torch.tensor(np.float32(stored[pick] + rng.uniform(-0.5, 0.5, (10000, 3))), device=dev)
+    stored, q = _map_queries(torch, m, dev)
     stored_d = torch.tensor(stored, device=dev)
     cap, k2_shapes = {}, []
-    o_k7, o_k2 = knn._launch, knn_rows._launch
+    o_k7t, o_k2, o_cands = knn._launch_table, knn_rows._launch, mapper.cands_from_rows
+    decodes = [0]
 
-    def k7_cap(*a, **kw):
-        cap.setdefault("k7", (a, kw))
-        return o_k7(*a, **kw)
+    def k7t_cap(*a, **kw):
+        cap.setdefault("k7t", (a, kw))
+        return o_k7t(*a, **kw)
 
     def k2_cap(*a, **kw):
         k2_shapes.append((int(a[1].shape[1]), kw["k"]))
@@ -425,21 +511,30 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
             cap.setdefault("k2_64", (a, kw))
         return o_k2(*a, **kw)
 
-    knn._launch, knn_rows._launch = k7_cap, k2_cap
-    settings = [(0.9 * vox, 16), (1.9 * vox, 16), (1.9 * vox, 64), (3.0, 16)]
+    def cands_count(*a, **kw):
+        decodes[0] += 1
+        return o_cands(*a, **kw)
+
+    knn._launch_table, knn_rows._launch = k7t_cap, k2_cap
+    mapper.cands_from_rows = cands_count
+    settings = _radius_settings(vox)
     for w in wrappers.values():
         w[0].launches = 0
     runs = []
     for r, kmax in settings:
-        c0 = counts()
+        c0, d0 = counts(), decodes[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = mapper.radius_search(m, q, r, voxel_size=vox, max_results=kmax)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        runs.append((r, kmax, ms, {k: n - c0[k] for k, n in counts().items() if n > c0[k]}, res))
+        launched = {k: n - c0[k] for k, n in counts().items() if n > c0[k]}
+        if decodes[0] > d0:
+            launched["cands_from_rows"] = decodes[0] - d0
+        runs.append((r, kmax, ms, launched, res))
     map_counts = counts()
-    knn._launch, knn_rows._launch = o_k7, o_k2
+    knn._launch_table, knn_rows._launch = o_k7t, o_k2
+    mapper.cands_from_rows = o_cands
     print(f"[smoke] map: {len(stored)} stored points, {q.shape[0]} queries | launches "
           f"{json.dumps(map_counts)} | K2 (V, k) {sorted(set(k2_shapes))}", flush=True)
     for r, kmax, ms, launched, res in runs:
@@ -448,33 +543,69 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
                          tuple(t[:256] for t in res))
         print(f"[smoke] map: {name}: {ms:.2f} ms | launches {json.dumps(launched)} | 256 "
               f"queries equal brute force ({n:.2f} points each)", flush=True)
-    for name in ("knn_rows", "masked_topk"):
-        if map_counts[name] <= 0:
-            _fail(f"kernel {name} did not launch in the map phase")
+    if map_counts["knn_rows"] <= 0:
+        _fail("kernel knn_rows did not launch in the map phase")
     for want in ((8, 16), (27, 16), (27, 64)):
         if want not in k2_shapes:
             _fail(f"K2 did not launch with (V, k) = {want} in the map phase")
-    if "masked_topk" not in runs[3][3]:
-        _fail("radius_search's wide branch did not launch K7")
+    if runs[3][3] != {"masked_topk_table": 1}:
+        _fail(f"radius_search's wide branch launched {json.dumps(runs[3][3])}, not K7's table "
+              f"entry once (and no dense K7, no candidate decode)")
 
-    # (b) K7 and K2 at k = 64 against their plain versions
-    a7, kw7 = cap["k7"]
+    # the 3.0 m / 16 call: wall and device time, K7's share of it
+    t = _query_timing(torch, lambda: mapper.radius_search(m, q, 3.0, voxel_size=vox,
+                                                          max_results=16))
+    print(f"[smoke] map: {_query_line(f'radius 3.00 m / 16 over {q.shape[0]} queries', t)}",
+          flush=True)
+
+    # (b) K7's table entry at that call, and the dense entry on its first
+    # 381 queries decoded explicitly (gather + cands_from_rows), against
+    # their plain versions: sq, valid and nbrs bit-equal, invalid tail
+    # included
+    def held(name, got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                _fail(f"{name}: output {i} (nbrs, sq, valid) differs from the plain version")
+
+    at, kwt = cap["k7t"]
+    ptab, ridx, ncb, qt = at
+    g = _once("K7 table", knn.masked_topk_from_table,
+              lambda: knn.masked_topk_from_table(*at, **kwt))
+    held("K7 table", g, knn.masked_topk_from_table_reference(*at, **kwt))
+    Nt, Vt = ridx.shape
+    rows = ptab[ridx.long()]
+    cand_t, cval_t = mapper.cands_from_rows(rows, ncb, kwt["B"])
+    del rows
+    d2_t = knn.masked_d2(cand_t.reshape(Nt, -1, 3), cval_t.reshape(Nt, -1), qt)
+    del cand_t, cval_t
+    report("masked_topk (table)", 0.0, lambda: knn.masked_topk_from_table(*at, **kwt),
+           lambda: knn.masked_topk_from_table_reference(*at, **kwt),
+           *_table_work(ptab, ridx, ncb, qt, g, d2_t, kwt["E"]),
+           lambda: torch.topk(d2_t, kwt["k"], dim=1, largest=False),
+           f"(radius_search 3.0 m / 16: N={Nt}, V={Vt}, C={d2_t.shape[1]}, k={kwt['k']}, "
+           f"{float(torch.isfinite(d2_t).float().mean()):.3f} valid; one launch a call)",
+           launches=map_counts["masked_topk_table"], kernel="masked_topk_table",
+           prefix="fl_masked_topk")
+    del d2_t
+
+    n7 = min(381, Nt)
+    rows = ptab[ridx[:n7].long()]
+    cand7, cval7 = mapper.cands_from_rows(rows, ncb[:n7], kwt["B"])
+    a7 = (cand7.reshape(n7, -1, 3), cval7.reshape(n7, -1), qt[:n7])
+    kw7 = {"k": kwt["k"]}
     g = _once("K7", knn.masked_topk, lambda: knn.masked_topk(*a7, **kw7))
-    w = knn.masked_topk_reference(*a7, **kw7)
-    if not (torch.equal(g[1], w[1]) and torch.equal(g[2], w[2])):
-        _fail("K7 sq/valid differ from the plain version")
-    err = _maxerr(g[0][w[2]], w[0][w[2]])
-    if err != 0.0:
-        _fail(f"K7 neighbours differ where valid: {err:.3e}")
+    held("K7", g, knn.masked_topk_reference(*a7, **kw7))
     N7, C7 = a7[1].shape
     n_valid = int(a7[1].sum())
     d2_7 = knn.masked_d2(*a7)
-    report("masked_topk", err, lambda: knn.masked_topk(*a7, **kw7),
+    report("masked_topk", 0.0, lambda: knn.masked_topk(*a7, **kw7),
            lambda: knn.masked_topk_reference(*a7, **kw7),
            N7 * C7 + 12 * n_valid + _nbytes(a7[2], *g), 8 * n_valid,
            lambda: torch.topk(d2_7, kw7["k"], dim=1, largest=False),
-           f"(N={N7}, C={C7}, k={kw7['k']}, {n_valid / (N7 * C7):.3f} valid; one of "
-           f"{map_counts['masked_topk']} chunks)", launches=map_counts["masked_topk"])
+           f"(N={N7}, C={C7}, k={kw7['k']}, {n_valid / (N7 * C7):.3f} valid: the first "
+           f"{N7} queries of the 3.0 m call, decoded explicitly; no path launches the dense "
+           f"entry)",
+           launches=map_counts["masked_topk"])
 
     a2, kw2 = cap["k2_64"]
     a2 = a2[:4]                                   # ptable, row_idx, nc, queries
@@ -488,7 +619,7 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
     d2_2 = knn_rows.candidate_d2(a2[0][a2[1].long()], *a2[2:], E=kw2["E"], B=kw2["B"])[0]
     report("knn_rows k=64", err, lambda: knn_rows.topk_from_table(*a2, **kw2),
            lambda: knn_rows.topk_from_table_reference(*a2, **kw2),
-           *_k2_work(*a2[1:], g, d2_2, kw2["E"]),
+           *_table_work(*a2, g, d2_2, kw2["E"]),
            lambda: torch.topk(d2_2, 64, dim=1, largest=False),
            f"(radius_search 2.28 m / 64: N={a2[1].shape[0]}, V={a2[1].shape[1]}, k=64)",
            launches=map_counts["knn_rows"], kernel="knn_rows")
@@ -570,7 +701,7 @@ def _cuda_launches(torch, fn, prefix: str, tries: int = 3):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
         if events:
-            return sum(e.count for e in events if e.key.startswith(prefix))
+            return sum(e.count for e in events if _kname(e.key).startswith(prefix))
     return "not measured"
 
 
@@ -964,12 +1095,76 @@ def _slam_phase(dev, cfg, counts, zero):
     os.remove(dump_path)
 
 
+def _compare(args, smi) -> None:
+    """--compare: phase 3's replay (no capture, census or check) and the
+    map phase's radius_search calls, each timed as the map phase times its
+    3 m call, with the port of the checkout at --tree; --out saves the
+    trajectory, the loop-fallback count and the timings, --against prints
+    the largest pose differences from another run's file."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(args.tree))
+    import fast_limo_tpu_torch
+    from fast_limo_tpu_torch.models import iekf, mapper
+    from fast_limo_tpu_torch.models.localizer import Localizer
+    from fast_limo_tpu_torch.utils import presets
+
+    print(f"[compare] {smi} | port from {os.path.dirname(fast_limo_tpu_torch.__file__)}",
+          flush=True)
+    dev = torch.device("cuda:0")
+    cfg = presets.kitti_like_cfg()
+    seq = presets.bench_sequence(n_scans=args.scans)
+    stamps, acc, gyro = seq.imu_stream()
+    scans = [seq.scan(i) for i in range(seq.n_scans)]
+    loc = Localizer(cfg, device=dev)
+    iekf.counters.loop_fallbacks = 0
+    for ev in _events(stamps, scans):
+        _feed(loc, ev, stamps, acc, gyro, scans)
+    torch.cuda.synchronize()
+    traj = loc.trajectory
+    pos = np.array([t["pos"] for t in traj])
+    quat = np.array([t["quat"] for t in traj])
+    n_iters = np.array([t["n_iters"] for t in traj])
+    fallbacks = int(iekf.counters.loop_fallbacks)
+    print(f"[compare] replay: {len(traj)} scans | loop fallbacks {fallbacks} | n_iters "
+          f"{n_iters.tolist()}", flush=True)
+
+    m, vox = loc.state.map, cfg.map_voxel_size
+    _, q = _map_queries(torch, m, dev)
+    timings = {}
+    for r, kmax in _radius_settings(vox):
+        name = f"{r:.2f} m / {kmax}"
+        timings[name] = _query_timing(torch, lambda: mapper.radius_search(
+            m, q, r, voxel_size=vox, max_results=kmax))
+        print(f"[compare] {_query_line(f'radius {name}', timings[name])}", flush=True)
+    print(json.dumps({"tree": os.path.abspath(args.tree), "fallbacks": fallbacks,
+                      "radius": timings}))
+    if args.out:
+        np.savez(args.out, pos=pos, quat=quat, n_iters=n_iters, fallbacks=fallbacks)
+    if args.against:
+        other = np.load(args.against)
+        same = bool(np.array_equal(pos, other["pos"]) and np.array_equal(quat, other["quat"]))
+        print(f"[compare] against {os.path.basename(args.against)}: max |dpos| "
+              f"{float(np.abs(pos - other['pos']).max()):.3e} m, max |dquat| "
+              f"{float(np.abs(quat - other['quat']).max()):.3e}, bit-equal {same}, n_iters "
+              f"equal {bool(np.array_equal(n_iters, other['n_iters']))}, fallbacks "
+              f"{fallbacks} vs {int(other['fallbacks'])}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=24)
     ap.add_argument("--profile", action="store_true",
                     help="also profile the steady scans of a one-scan and a "
                          "chunked (C = 4) replay (torch.profiler)")
+    ap.add_argument("--compare", action="store_true",
+                    help="only replay phase 3 and time the map phase's radius_search calls "
+                         "(no check), with the port of --tree: two trees in one call")
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)),
+                    help="with --compare: the checkout whose fast_limo_tpu_torch is imported "
+                         "(default: this one); it builds its own kernels")
+    ap.add_argument("--out", help="with --compare: save the trajectory to this .npz")
+    ap.add_argument("--against", help="with --compare: compare the trajectory with a saved one")
     args = ap.parse_args()
 
     # ---- 1. device ----
@@ -979,6 +1174,9 @@ def main() -> None:
         print("[smoke] no CUDA device: this script runs only on a GPU", file=sys.stderr)
         sys.exit(2)
     smi = _smi()
+    if args.compare:
+        _compare(args, smi)
+        return
     dev = torch.device("cuda:0")
     print(f"[smoke] device: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -1029,6 +1227,9 @@ def main() -> None:
                         "fast_limo_tpu/ops/update_loop.py:394"),
         "masked_topk": (knn.masked_topk, "fast_limo_tpu_torch/csrc/masked_topk.cu",
                         "fast_limo_tpu/ops/knn.py:52"),
+        "masked_topk_table": (knn.masked_topk_from_table,
+                              "fast_limo_tpu_torch/csrc/masked_topk.cu",
+                              "fast_limo_tpu/ops/knn.py:52"),
         "gain": (gain.gain, "fast_limo_tpu_torch/csrc/gain.cu",
                  "fast_limo_tpu/ops/gain.py:157"),
         "sort3": (sort.sort3, "fast_limo_tpu_torch/csrc/sort3.cu",
@@ -1249,7 +1450,10 @@ def main() -> None:
               f"{_fmt(dms)}) vs plain {pms:.4f} ms | bound {bms:.4f} ms ({by}) | one PyTorch "
               f"call {lib} {extra}", flush=True)
 
-    # K1 deskew — rtol 1e-4 / atol 2e-4 (f32 association, transcendental ulps)
+    # K1 deskew — rtol 1e-4 / atol 2e-4 (f32 association, transcendental
+    # ulps); the frame sources as the scan step passed them, the plain
+    # version on the table and scalars built in plain torch; ONE CUDA
+    # kernel a call (the frame table is built in it)
     pts, t_pts, valid, frames, x_last, q_ext, t_ext = cap["deskew"]
 
     def k1():
@@ -1258,14 +1462,18 @@ def main() -> None:
 
     def k1_plain():
         return deskew_kernel.deskew_plain(
-            pts, t_pts, valid, deskew_kernel.frame_table(frames),
+            pts, t_pts, valid, deskew_kernel.frame_table(deskew_kernel.stack_frames(frames)),
             deskew_kernel._scalars(q_ext, t_ext, x_last.rot, x_last.pos))
 
     a, b = _once("K1", deskew_kernel.deskew, k1), k1_plain()
     err = max(_close("K1 xt2", a[0], b[0], 1e-4, 2e-4), _close("K1 world", a[1], b[1], 1e-4, 2e-4))
+    n1 = _cuda_launches(torch, k1, "")
+    if n1 != 1:
+        _fail(f"K1 ran {n1} CUDA kernels a call, not one")
+    K1 = sum(f.time.shape[0] for f in frames)
     # ~140 float32 operations a valid point (interpolation, two rotations)
-    report("deskew", err, k1, k1_plain, _nbytes(pts, t_pts, valid, *a), 140 * int(valid.sum()),
-           extra=f"(N={pts.shape[0]})")
+    report("deskew", err, k1, k1_plain, _nbytes(pts, t_pts, valid, *frames, *a),
+           140 * int(valid.sum()), extra=f"(N={pts.shape[0]}, K={K1}, {n1} CUDA kernel a call)")
 
     # K2 at the main path's window resolve — sq and valid bit-equal to the
     # plain version (the gather, then the plain top-k), nbrs equal where finite
@@ -1283,7 +1491,7 @@ def main() -> None:
     if err != 0.0:
         _fail(f"K2 neighbours differ where distances are finite: {err:.3e}")
     d2_k2 = knn_rows.candidate_d2(ptab[ridx.long()], nc, q, E=kw["E"], B=kw["B"])[0]
-    nb2, ops2 = _k2_work(ridx, nc, q, a, d2_k2, kw["E"])
+    nb2, ops2 = _table_work(ptab, ridx, nc, q, a, d2_k2, kw["E"])
     report("knn_rows", err, k2t,
            lambda: knn_rows.topk_from_table_reference(ptab, ridx, nc, q, **kw), nb2, ops2,
            lambda: torch.topk(d2_k2, kw["k"], dim=1, largest=False),

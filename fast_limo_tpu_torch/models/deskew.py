@@ -3,7 +3,7 @@ reference Localizer.cpp:733-853, Objects/State.cpp:76-119).
 
 Per point: the latest propagated frame at-or-before its time, integrated
 forward to the point time, LiDAR → baselink → world → Xt2.  The whole
-chain is the K1 kernel (ops/deskew_kernel.py).
+chain, the frame table included, is the K1 kernel (ops/deskew_kernel.py).
 """
 
 from __future__ import annotations
@@ -31,24 +31,31 @@ class Frames(NamedTuple):
     valid: torch.Tensor  # (K,)
 
 
-def deskew(points, t_pts, valid, frames: Frames, x_last: st.NavState, q_ext, t_ext):
-    """Deskew a scan → (pts_xt2 (N,3), pts_world (N,3)); ``(q_ext, t_ext)``
-    are the ESTIMATED baselink←lidar extrinsics (Localizer.cpp:356)."""
+def deskew(points, t_pts, valid, frames, x_last: st.NavState, q_ext, t_ext):
+    """Deskew a scan → (pts_xt2 (N,3), pts_world (N,3)); ``frames`` is a
+    ``Frames`` or the row sources of ``frames_from_scan``; ``(q_ext,
+    t_ext)`` are the ESTIMATED baselink←lidar extrinsics (Localizer.cpp:356)."""
     return deskew_kernel.deskew(points, t_pts, valid, frames, x_last.rot,
                                 x_last.pos, q_ext, t_ext)
 
 
-def frames_from_scan(x0: st.NavState, t0, w0, a0, xs: st.NavState, imu) -> Frames:
-    """Carry-in state + per-IMU propagated states (Localizer.cpp:900-912)."""
-    def cat(a, b):
-        return torch.cat([a[None], b], dim=0)
+# the carry-in row's validity flag, built once per device
+_ONE = {}
 
-    return Frames(
-        time=cat(torch.as_tensor(t0, dtype=imu["stamp"].dtype,
-                                 device=imu["stamp"].device), imu["stamp"]),
-        pos=cat(x0.pos, xs.pos), rot=cat(x0.rot, xs.rot),
-        vel=cat(x0.vel, xs.vel), bg=cat(x0.bg, xs.bg), ba=cat(x0.ba, xs.ba),
-        grav=cat(x0.grav, xs.grav), w=cat(w0, imu["gyro"]),
-        a=cat(a0, imu["acc"]),
-        valid=cat(torch.ones((), dtype=torch.bool, device=imu["valid"].device),
-                  imu["valid"]))
+
+def frames_from_scan(x0: st.NavState, t0, w0, a0, xs: st.NavState, imu):
+    """Carry-in state + per-IMU propagated states (Localizer.cpp:900-912),
+    as two row sources: ``(carry-in Frames of one row, window Frames)``.
+    Every field is a view of the step's tensors (nothing is copied); the
+    K1 kernel reads both, ``deskew_kernel.stack_frames`` joins them."""
+    dev = imu["valid"].device
+    one = _ONE.get(dev)
+    if one is None:
+        one = _ONE[dev] = torch.ones(1, dtype=torch.bool, device=dev)
+    head = Frames(
+        time=torch.as_tensor(t0, dtype=imu["stamp"].dtype, device=imu["stamp"].device)[None],
+        pos=x0.pos[None], rot=x0.rot[None], vel=x0.vel[None], bg=x0.bg[None],
+        ba=x0.ba[None], grav=x0.grav[None], w=w0[None], a=a0[None], valid=one)
+    tail = Frames(time=imu["stamp"], pos=xs.pos, rot=xs.rot, vel=xs.vel, bg=xs.bg, ba=xs.ba,
+                  grav=xs.grav, w=imu["gyro"], a=imu["acc"], valid=imu["valid"])
+    return head, tail

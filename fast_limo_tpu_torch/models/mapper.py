@@ -12,7 +12,7 @@ The map maintenance (insert, evict) is plain tensor work (gathers, one
 scatter) around one K9 sort in ``insert``; after the same inserts and
 evictions ``table``/``ptable`` equal the JAX package's bit for bit.  The queries end in kernels: ``knn``
 and the narrow ``radius_search`` branches in K2 (``ops/knn_rows``), the
-wide ``radius_search`` branch in K7 (``ops/knn``).  Sharded maps
+wide ``radius_search`` branch in K7's table entry (``ops/knn``).  Sharded maps
 (``num_shards``/``shard_index``/``owned`` in the JAX package) are not
 ported yet.
 """
@@ -330,14 +330,6 @@ def gather_neighborhood(m: VoxelHashMap, queries, *, voxel_size: float,
     return cands_from_rows(rows, ncb, m.bucket)
 
 
-def topk_from_candidates(cand_pts, cand_valid, queries, *, k: int):
-    """k smallest squared distances among the candidate buckets, ascending
-    (K7 on CUDA tensors)."""
-    N = queries.shape[0]
-    return knn_op.masked_topk(cand_pts.reshape(N, -1, 3), cand_valid.reshape(N, -1),
-                              queries, k=k)
-
-
 def knn(m: VoxelHashMap, queries, *, voxel_size: float, k: int, neighborhood: int = 8):
     """Bounded kNN over the block neighborhood: K2 on the table rows of
     ``block_rows`` (the rows are not gathered)."""
@@ -376,10 +368,11 @@ def radius_search(m: VoxelHashMap, queries, radius: float, *, voxel_size: float,
     (N,R)); invalid lanes carry +inf.
 
     ``radius ≤ voxel_size`` takes the 8-block gather and ``≤ 2·voxel_size``
-    the 27-block one, both through K2; larger radii gather the
-    (2mb+1)³ blocks around the query's block, mb = ceil(radius / (2·voxel_size))
-    ≤ 6, in query chunks that bound the gathered rows to 2^24 floats, one
-    K7 launch per chunk."""
+    the 27-block one, both through K2; larger radii read the (2mb+1)³
+    blocks around the query's block, mb = ceil(radius / (2·voxel_size))
+    ≤ 6, through K7's table entry: one launch for all queries, the rows
+    read by index and decoded in the kernel (on CPU tensors its plain
+    version gathers and decodes them in query chunks)."""
     r2 = radius * radius
     if radius <= 2 * voxel_size + 1e-6:
         nbh = 8 if radius <= voxel_size + 1e-6 else -27
@@ -389,19 +382,10 @@ def radius_search(m: VoxelHashMap, queries, radius: float, *, voxel_size: float,
         mb = int(math.ceil(radius / (2 * voxel_size) - 1e-9))
         if mb > 6:
             raise ValueError(f"radius {radius} needs a {2 * mb + 1}³-block gather (at most 13³)")
-        offs = _block_offsets(mb, queries.device)
-        N, V = queries.shape[0], offs.shape[0]
-        chunk = max(8, min(N, (1 << 24) // max(1, V * m.ptable.shape[1])))
-        outs = []
-        for i0 in range(0, N, chunk):
-            q = queries[i0:i0 + chunk]
-            ncb = block_coords(voxel_coords(q, voxel_size))[:, None, :] + offs[None]
-            rows = m.ptable[_hash(ncb, m.groups)]
-            cand_pts, cand_valid = cands_from_rows(rows, ncb, m.bucket)
-            outs.append(topk_from_candidates(cand_pts, cand_valid, q, k=max_results))
-        if not outs:
-            z = queries.new_zeros((0, max_results))
-            outs = [(queries.new_zeros((0, max_results, 3)), z, z.bool())]
-        nbrs, sq, valid = (torch.cat(x) for x in zip(*outs))
+        ncb = (block_coords(voxel_coords(queries, voxel_size))[:, None, :]
+               + _block_offsets(mb, queries.device)[None])
+        nbrs, sq, valid = knn_op.masked_topk_from_table(
+            m.ptable, _hash(ncb, m.groups).to(torch.int32), ncb.to(torch.int32), queries,
+            E=E, B=m.bucket, k=max_results)
     inside = valid & (sq <= r2)
     return nbrs, torch.where(inside, sq, torch.full_like(sq, float("inf"))), inside

@@ -38,9 +38,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name → argument types (pointers and the stream as c_void_p;
 # scalars by value, so a launch uploads nothing)
 _SIGNATURES = {
-    "fl_deskew": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P],
+    "fl_deskew": [_P, _P],
     "fl_knn_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "fl_masked_topk": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "fl_masked_topk": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "fl_masked_topk_table": [_P] * 4 + [_I] * 7 + [_P] * 4,
     "fl_fit_planes": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
     "fl_fit_planes_select": [_P] * 11 + [_I] * 4 + [_F] * 3 + [_P] * 4,
     "fl_hstats": [_P, _I, _P, _I, _P, _P, _P],

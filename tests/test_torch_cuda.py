@@ -12,8 +12,10 @@ bit-equal; K3 gate agreement ≥ 99.5 %, n_abcd rtol 5e-3/atol 5e-4; K4
 rtol 1e-5 of each entry's sum of term magnitudes (Σ|HᵢHⱼ|: the two sides
 sum the same float32 products in different orders); K5 x atol 1e-4 +
 rtol 1e-3, P atol 1e-3 + rtol 1e-3; K6 x and P atol 2e-4 + rtol 1e-3 with
-n_iters, ok and the stale count exact; K7 and K2 at k = 64 sq and valid
-bit-equal, neighbours equal; K9 bit-equal; K8 against float64 truth within
+n_iters, ok and the stale count exact; K7 (the dense entry, C up to
+211 000, and the map-table entry at 3 m and at the 13³-block radius) and
+K2 at k = 5 … 128 sq, valid and nbrs bit-equal, invalid tail included; K1
+on stacked frames and on the scan step's two row sources; K9 bit-equal; K8 against float64 truth within
 12× the float32 library solve's error + 2e-5 of the largest entry (the rule
 of tests/test_gain.py; likewise against 12× its plain version's error) and
 to its plain version within rtol 1e-3 + 1e-3 of the largest entry on the
@@ -103,28 +105,53 @@ def scan(dev):
     return cfg, cap["h"], loc
 
 
-def test_k1_deskew(dev):
-    rng = np.random.default_rng(1)
-    K, N = 9, 3000
+@pytest.mark.parametrize("K,n_valid", [(9, 7), (33, 27)])
+def test_k1_deskew(dev, K, n_valid):
+    """K1 on stacked frames and on the scan step's two sources (a carry-in
+    row, then a window whose bg/ba/grav are broadcast with row stride 0),
+    with a regressed stamp and invalid frames: within rtol 1e-4 / atol 2e-4
+    of deskew_plain on the table and scalars built in plain torch, the two
+    forms bit-equal.  (Its one CUDA kernel a call is counted by
+    chip_smoke.py's phase 5: a torch.profiler session this early in the
+    file made the profiles of test_k9_sort3, late in it, miss their
+    kernel.)"""
+    rng = np.random.default_rng(K)
+    N = 3000
     f = {k: torch.tensor(np.float32(rng.normal(size=(K, 3))), device=dev)
          for k in ("pos", "vel", "bg", "ba", "w", "a")}
     q = rng.normal(size=(K, 4))
     from fast_limo_tpu_torch.models.deskew import Frames
 
-    fr = Frames(time=torch.tensor(np.float32(np.sort(rng.uniform(0, 0.1, K))), device=dev),
+    times = np.float32(np.sort(rng.uniform(0, 0.1, K)))
+    times[5] = times[2] - 0.005                 # a regressed IMU stamp
+    fr = Frames(time=torch.tensor(times, device=dev),
                 rot=torch.tensor(np.float32(q / np.linalg.norm(q, axis=1, keepdims=True)),
                                  device=dev),
                 grav=torch.tensor([[0.0, 0.0, -9.81]] * K, device=dev),
-                valid=torch.arange(K, device=dev) < 7, **f)
+                valid=torch.arange(K, device=dev) < n_valid, **f)
+    for name in ("bg", "ba", "grav"):           # constant over the window
+        row = getattr(fr, name)[1]
+        fr = fr._replace(**{name: torch.cat([getattr(fr, name)[:1], row.expand(K - 1, 3)])})
+    srcs = (Frames(*[a[:1] for a in fr]),
+            Frames(*[a[1:] for a in fr])._replace(
+                bg=fr.bg[1].expand(K - 1, 3), ba=fr.ba[1].expand(K - 1, 3),
+                grav=fr.grav[1].expand(K - 1, 3)))
     pts = torch.tensor(np.float32(rng.uniform(-30, 30, (N, 3))), device=dev)
     t = torch.tensor(np.float32(rng.uniform(-0.01, 0.12, N)), device=dev)
     valid = torch.tensor(rng.random(N) < 0.9, device=dev)
     F = deskew_kernel.frame_table(fr)
     sc = deskew_kernel._scalars(fr.rot[0], fr.pos[0], fr.rot[1], fr.pos[1])
-    got = _once(deskew_kernel.deskew, lambda: deskew_kernel.deskew(
-        pts, t, valid, fr, fr.rot[1], fr.pos[1], fr.rot[0], fr.pos[0]))
-    for a, b in zip(got, deskew_kernel.deskew_plain(pts, t, valid, F, sc)):
-        _close(a, b, 1e-4, 2e-4)
+    want = deskew_kernel.deskew_plain(pts, t, valid, F, sc)
+    outs = []
+    for frames in (fr, srcs):
+        def call():
+            return deskew_kernel.deskew(pts, t, valid, frames, fr.rot[1], fr.pos[1], fr.rot[0],
+                                        fr.pos[0])
+
+        outs.append(_once(deskew_kernel.deskew, call))
+        for a, b in zip(outs[-1], want):
+            _close(a, b, 1e-4, 2e-4)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 def test_k2_k3_k4_on_a_scan(scan):
@@ -365,8 +392,12 @@ def test_replay_is_deterministic(dev, scan):
 
 @pytest.mark.parametrize("N,C,k,frac,ties", [
     (100, 81, 5, 0.7, False), (8, 81, 5, 0.0, False), (64, 1500, 64, 0.02, False),
-    (64, 1500, 64, 0.7, True), (381, 12000, 16, 0.7, False), (21, 25000, 128, 0.3, False)])
+    (64, 1500, 64, 0.7, True), (381, 12000, 16, 0.7, False), (21, 25000, 128, 0.3, False),
+    (381, 12000, 16, 0.09, False), (4, 211000, 16, 0.9, False), (3, 211000, 128, 0.9, True)])
 def test_k7_masked_topk(dev, N, C, k, frac, ties):
+    """sq, valid and nbrs bit-equal to the plain stable sort, invalid tail
+    included; C = 211 000 mostly valid overflows the shared capacity (the
+    kernel's global path)."""
     rng = np.random.default_rng(N + C + k)
     pts = np.float32(rng.normal(size=(N, C, 3)) * 3)
     q = np.float32(rng.normal(size=(N, 3)))
@@ -375,6 +406,67 @@ def test_k7_masked_topk(dev, N, C, k, frac, ties):
     args = [torch.tensor(a, device=dev) for a in (pts, rng.random((N, C)) < frac, q)]
     a = _once(knn.masked_topk, lambda: knn.masked_topk(*args, k=k))
     b = knn.masked_topk_reference(*args, k=k)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    # the same mask in a contiguous view 3 bytes off a 16-byte boundary
+    buf = torch.zeros(N * C + 3, dtype=torch.bool, device=dev)
+    mask3 = buf[3:].view(N, C)
+    mask3.copy_(args[1])
+    a = knn.masked_topk(args[0], mask3, args[2], k=k)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _replay_queries(m, n, seed):
+    """n queries near stored points of map m (on its device)."""
+    from fast_limo_tpu_torch.utils import checkpoint
+
+    stored = checkpoint.map_points(m)
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(stored), n, replace=len(stored) < n)
+    return torch.tensor(np.float32(stored[pick] + rng.uniform(-0.5, 0.5, (n, 3))),
+                        device=m.ptable.device)
+
+
+@pytest.mark.parametrize("radius,n,k,cap", [(3.0, 500, 16, knn.CAP), (3.0, 64, 128, knn.CAP),
+                                           (3.0, 200, 16, 200), (14.0, 24, 16, knn.CAP)])
+def test_k7_table_entry_on_a_replayed_map(scan, monkeypatch, radius, n, k, cap):
+    """The table entry bit-equal to its plain version (gather →
+    cands_from_rows → plain top-k) at 3 m (5³ blocks) and at the 13³-block
+    radius, and with a shared capacity of 200 entries (most queries take
+    the kernel's global path); radius_search's wide branch launches it
+    once and nothing else of K7."""
+    monkeypatch.setattr(knn, "CAP", cap)
+    cfg, _, loc = scan
+    m, vox = loc.state.map, cfg.map_voxel_size
+    q = _replay_queries(m, n, int(radius))
+    mb = int(np.ceil(radius / (2 * vox) - 1e-9))
+    ncb = (mapper.block_coords(mapper.voxel_coords(q, vox))[:, None, :]
+           + mapper._block_offsets(mb, q.device)[None])
+    row_idx, ncb = mapper._hash(ncb, m.groups).to(torch.int32), ncb.to(torch.int32)
+    kw = dict(E=mapper.E, B=m.bucket, k=k)
+    a = _once(knn.masked_topk_from_table, lambda: knn.masked_topk_from_table(
+        m.ptable, row_idx, ncb, q, **kw))
+    b = knn.masked_topk_from_table_reference(m.ptable, row_idx, ncb, q, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    n7, nt = knn.masked_topk.launches, knn.masked_topk_from_table.launches
+    res = mapper.radius_search(m, q, radius, voxel_size=vox, max_results=k)
+    assert knn.masked_topk.launches == n7 and knn.masked_topk_from_table.launches == nt + 1
+    inside = a[2] & (a[1] <= radius * radius)
+    assert torch.equal(res[2], inside) and torch.equal(res[1][inside], a[1][inside])
+
+
+@pytest.mark.parametrize("k", [5, 16, 64, 128])
+def test_k2_bit_equal_at_k(scan, k):
+    """K2's table entry (its select header unchanged by K7's redesign)
+    bit-equal to its plain version in sq, valid and nbrs."""
+    _, h, _ = scan
+    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size, neighborhood=-27)
+    kw = dict(E=mapper.E, B=h.m.bucket, k=k)
+    a = _once(knn_rows.topk_from_table, lambda: knn_rows.topk_from_table(
+        h.m.ptable, row_idx, ncb, h.glob0, **kw))
+    b = knn_rows.topk_from_table_reference(h.m.ptable, row_idx, ncb, h.glob0, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

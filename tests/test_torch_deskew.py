@@ -65,6 +65,14 @@ def _port(case):
                       x_last, torch.tensor(q_ext), torch.tensor(t_ext))
 
 
+def _sources(case):
+    """The frames of a case as the scan step passes them: a carry-in row
+    and the window (views of the stacked tensors)."""
+    f, fvalid = case[0], case[1]
+    fr = dsk.Frames(**{k: torch.tensor(v) for k, v in f.items()}, valid=torch.tensor(fvalid))
+    return fr, (dsk.Frames(*[a[:1] for a in fr]), dsk.Frames(*[a[1:] for a in fr]))
+
+
 def _jax_frames(f, fvalid):
     return jdsk.Frames(**{k: jnp.asarray(v) for k, v in f.items()},
                        valid=jnp.asarray(fvalid))
@@ -90,7 +98,8 @@ def _jax_chain(case, monotone=False):
 
 
 @pytest.mark.parametrize("kw", [{}, {"K": 33, "n_valid": 12}, {"N": 1280},
-                                {"regress": True}, {"nan": True}])
+                                {"regress": True}, {"nan": True},
+                                {"K": 33, "n_valid": 27, "regress": True}])
 def test_plain_k1_matches_jax(rng, kw):
     case = _case(rng, **kw)
     got = _port(case)
@@ -110,3 +119,39 @@ def test_frame_table_layout(rng):
     assert F.shape == (9, deskew_kernel.FW)
     T = F[:, 0].numpy()
     assert np.all(np.diff(T[:6]) >= 0) and np.all(np.isinf(T[6:]))
+
+
+def test_two_sources_equal_the_stacked_frames(rng):
+    """The carry-in row and the window as two sources give the stacked
+    frames' outputs bit for bit (on the CPU both are stacked first)."""
+    case = _case(rng, K=33, n_valid=27, regress=True)
+    _, _, pts, t, valid, q_ext, t_ext, rot, pos = case
+    fr, srcs = _sources(case)
+    x_last = st.identity()._replace(rot=torch.tensor(rot), pos=torch.tensor(pos))
+    args = (torch.tensor(pts), torch.tensor(t), torch.tensor(valid))
+    a = dsk.deskew(*args, fr, x_last, torch.tensor(q_ext), torch.tensor(t_ext))
+    b = dsk.deskew(*args, srcs, x_last, torch.tensor(q_ext), torch.tensor(t_ext))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(deskew_kernel.stack_frames(srcs), fr))
+
+
+def test_frames_from_scan_sources_are_views(rng):
+    """frames_from_scan's two sources: the carry-in state as one row and
+    the propagated window, stacking to [x0; xs] with the carry-in valid."""
+    K = 8
+    x0 = st.identity()._replace(pos=torch.tensor(np.float32(rng.normal(size=3))))
+    xs = st.NavState(*[torch.tensor(np.float32(rng.normal(size=(K,) + tuple(a.shape))))
+                       for a in x0])
+    imu = {"stamp": torch.tensor(np.float32(np.sort(rng.uniform(0, 0.1, K)))),
+           "gyro": torch.tensor(np.float32(rng.normal(size=(K, 3)))),
+           "acc": torch.tensor(np.float32(rng.normal(size=(K, 3)))),
+           "valid": torch.tensor(rng.random(K) < 0.8)}
+    w0, a0 = (torch.tensor(np.float32(rng.normal(size=3))) for _ in range(2))
+    t0 = torch.tensor(np.float32(-0.01))
+    head, tail = dsk.frames_from_scan(x0, t0, w0, a0, xs, imu)
+    assert head.pos.data_ptr() == x0.pos.data_ptr() and tail.w.data_ptr() == imu["gyro"].data_ptr()
+    fr = deskew_kernel.stack_frames((head, tail))
+    assert fr.time.shape == (K + 1,) and bool(fr.valid[0])
+    np.testing.assert_array_equal(fr.valid[1:].numpy(), imu["valid"].numpy())
+    np.testing.assert_array_equal(fr.rot.numpy(), np.concatenate([x0.rot[None], xs.rot]))
+    np.testing.assert_array_equal(fr.a.numpy(), np.concatenate([a0[None], imu["acc"]]))

@@ -17,7 +17,9 @@ Phases (each prints its own lines):
               the exact loop's K3/K4/K5, which launch on every scan behind
               their active flag, must be > 0; K3 exactly once an evaluation,
               through fit_planes_select, the re-match's three branches in
-              one launch; K9 exactly twice a scan: the
+              one launch; K2 exactly once a scan for the window resolve and
+              once an evaluation through its select entry, the re-match's
+              patch or full resolve in one launch; K9 exactly twice a scan: the
               voxel and the insert sort), the loop-fallback count (read
               from the device after the replay) and the host-read count
               (must be 0); every steady scan runs under
@@ -27,7 +29,7 @@ Phases (each prints its own lines):
 4. fallback — the exact per-iteration update loop (the path selected on
               the device when the whole-loop kernel's certificates fail) on
               one captured scan at main-path shapes with no active flag:
-              K2 (k=5), K3 (once an evaluation), K4, K5 must launch; its
+              K2 (k=5) and K3 (once an evaluation each), K4, K5 must launch; its
               x/P are compared with the whole-loop kernel's on that scan.
 5. kernels  — every kernel's public wrapper against its plain PyTorch
               version on the card, on inputs captured from phases 3-4 and,
@@ -35,7 +37,11 @@ Phases (each prints its own lines):
               (K1 on the frame sources the scan step passed, its plain
               version on the table and scalars built in plain torch, ONE
               CUDA kernel a call; K2 on the captured window resolve, its plain version the
-              gather of the map rows, then the plain top-k; K3's one-set
+              gather of the map rows, then the plain top-k, bit for bit and
+              ONE CUDA kernel a call, with the device time of each of its
+              schedules; K2's select entry at branch codes 0/1/2 and under a
+              clear flag, the taken branch bit for bit, ONE CUDA kernel a
+              call; K3's one-set
               entry on the captured scan's window set, and its select
               entry on the window, a real stale patch and a real full
               re-match at each branch code: bit for bit the torch.where
@@ -69,12 +75,14 @@ Phases (each prints its own lines):
                   no dense K7 and no candidate decode (cands_from_rows);
                   that call's wall (p50 of 7, min, max) and device time
                   (the sum of its CUDA ops, K7's part);
+                  K2 at the 1.08 m and 2.28 m / 16 calls' inputs in each of
+                  its schedules, bit for bit, with their device times;
               (b) K7's table entry on the 3 m call's inputs, the dense K7
                   on its first 381 queries decoded explicitly (gather +
                   cands_from_rows), and K2 at k = 64, against their plain
                   versions (K7: sq, valid and nbrs bit-equal, invalid tail
-                  included; K2: sq/valid bit-equal), with times: their
-                  kernel rows;
+                  included; K2 likewise, ONE CUDA kernel a call), with
+                  times: their kernel rows;
               (c) an eviction replay (40 scans, evict_radius 30 m,
                   evict_occupancy 0.002): an eviction must drop the map's
                   point count, ATE < 0.15 m;
@@ -119,15 +127,15 @@ Phases (each prints its own lines):
               scan dispatches after the warm-up run under the sync census
               (no port line may be named).
 10. result  — the card's name and power limit, the kernels JSON line (K1-K9,
-              K2 twice: the main path's window resolve and the map path's
-              k = 64; K7 twice: the dense entry and the table entry; K9
-              twice), then the final status line.
+              K2 three times: the main path's window resolve, its select
+              entry and the map path's k = 64; K7 twice: the dense entry and
+              the table entry; K9 twice), then the final status line.
 
 Usage: python3 chip_smoke.py [--scans N] [--profile]
        python3 chip_smoke.py --compare [--tree DIR] [--out A.npz] [--against B.npz]
 --compare runs phase 3's replay and times phase 6 (a)'s four
-radius_search calls (wall p50 of 7 with min and max; device sum, K7's
-part, device ops and cudaLaunchKernel a call) with the port of the
+radius_search calls (wall p50 of 7 with min and max; device sum, K7's and
+K2's parts, device ops and cudaLaunchKernel a call) with the port of the
 checkout at --tree (default: this one), checking nothing: run it on a
 `git archive` of another commit and on this one, in one call, to compare
 the two.
@@ -202,8 +210,9 @@ def _device_ms(fn, prefix=None, reps: int = 5):
 def _query_timing(torch, call, reps: int = 3) -> dict:
     """One map query's wall ms (host clock between synchronises, p50 of 7
     after a warm-up, with min and max) and, from torch.profiler over reps
-    calls, a call's device ms (the sum of its CUDA ops), the part in K7's
-    kernels (names holding "masked_topk"), its device ops and its
+    calls, a call's device ms (the sum of its CUDA ops), the parts in K7's
+    kernels (names holding "masked_topk") and in K2's (names holding
+    "knn_rows" or "fl_k2", any tree's), its device ops and its
     cudaLaunchKernel calls (device figures None if the profiler records no
     device op)."""
     from torch.profiler import ProfilerActivity, profile
@@ -230,6 +239,7 @@ def _query_timing(torch, call, reps: int = 3) -> dict:
     return {"wall_p50": float(np.median(walls)), "wall_min": min(walls),
             "wall_max": max(walls), "device_ms": dsum(dev),
             "k7_device_ms": dsum([e for e in dev if "masked_topk" in e.key]),
+            "k2_device_ms": dsum([e for e in dev if "knn_rows" in e.key or "fl_k2" in e.key]),
             "device_ops": sum(e.count for e in dev) / reps,
             "cudaLaunchKernel": sum(e.count for e in host
                                     if e.key.startswith("cudaLaunchKernel")) / reps}
@@ -238,7 +248,8 @@ def _query_timing(torch, call, reps: int = 3) -> dict:
 def _query_line(name, t) -> str:
     return (f"{name}: wall p50 {t['wall_p50']:.3f} ms (min {t['wall_min']:.3f}, max "
             f"{t['wall_max']:.3f}, 7 runs) | device {_fmt(t['device_ms'])}, of it K7 "
-            f"{_fmt(t['k7_device_ms'])} | {t['device_ops']:.0f} device ops, "
+            f"{_fmt(t['k7_device_ms'])}, K2 {_fmt(t['k2_device_ms'])} | {t['device_ops']:.0f} "
+            f"device ops, "
             f"{t['cudaLaunchKernel']:.0f} cudaLaunchKernel a call")
 
 
@@ -364,6 +375,13 @@ def _close(name, got, want, rtol, atol, scale=None):
     return _maxerr(got, want)
 
 
+def _held(name, got, want):
+    """A top-k's (nbrs, sq, valid) bit-equal to its plain version's."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not g.equal(w):
+            _fail(f"{name}: output {i} (nbrs, sq, valid) differs from the plain version")
+
+
 def _once(name, wrapper, call):
     """Run ``call`` (a public kernel wrapper on CUDA tensors) and check that
     it launched its kernel exactly once."""
@@ -406,6 +424,9 @@ def _profile(torch, Localizer, cfg, stamps, acc, gyro, scans, label: str) -> Non
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"[smoke] profile {label}: {e.self_device_time_total / n / 1e3:8.4f} ms/scan "
               f"x{e.count / n:6.1f}  {e.key[:90]}")
+    k2 = [e for e in events if "knn_rows" in e.key or "fl_k2" in e.key]
+    print(f"[smoke] profile {label}: K2 {sum(e.self_device_time_total for e in k2) / n / 1e3:.4f} "
+          f"ms/scan in {sum(e.count for e in k2) / n:.1f} launches a scan", flush=True)
     host = [e for e in stats if e.device_type.name == "CPU"]
     n_sync = sum(e.count for e in host if e.key == "cudaStreamSynchronize")
     n_launch = sum(e.count for e in host if e.key.startswith("cudaLaunchKernel"))
@@ -507,8 +528,7 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
 
     def k2_cap(*a, **kw):
         k2_shapes.append((int(a[1].shape[1]), kw["k"]))
-        if kw["k"] == 64:
-            cap.setdefault("k2_64", (a, kw))
+        cap.setdefault("k2_64" if kw["k"] == 64 else f"k2_{a[1].shape[1]}_{kw['k']}", (a, kw))
         return o_k2(*a, **kw)
 
     def cands_count(*a, **kw):
@@ -562,16 +582,11 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
     # 381 queries decoded explicitly (gather + cands_from_rows), against
     # their plain versions: sq, valid and nbrs bit-equal, invalid tail
     # included
-    def held(name, got, want):
-        for i, (g, w) in enumerate(zip(got, want)):
-            if not torch.equal(g, w):
-                _fail(f"{name}: output {i} (nbrs, sq, valid) differs from the plain version")
-
     at, kwt = cap["k7t"]
     ptab, ridx, ncb, qt = at
     g = _once("K7 table", knn.masked_topk_from_table,
               lambda: knn.masked_topk_from_table(*at, **kwt))
-    held("K7 table", g, knn.masked_topk_from_table_reference(*at, **kwt))
+    _held("K7 table", g, knn.masked_topk_from_table_reference(*at, **kwt))
     Nt, Vt = ridx.shape
     rows = ptab[ridx.long()]
     cand_t, cval_t = mapper.cands_from_rows(rows, ncb, kwt["B"])
@@ -594,7 +609,7 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
     a7 = (cand7.reshape(n7, -1, 3), cval7.reshape(n7, -1), qt[:n7])
     kw7 = {"k": kwt["k"]}
     g = _once("K7", knn.masked_topk, lambda: knn.masked_topk(*a7, **kw7))
-    held("K7", g, knn.masked_topk_reference(*a7, **kw7))
+    _held("K7", g, knn.masked_topk_reference(*a7, **kw7))
     N7, C7 = a7[1].shape
     n_valid = int(a7[1].sum())
     d2_7 = knn.masked_d2(*a7)
@@ -607,22 +622,36 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
            f"entry)",
            launches=map_counts["masked_topk"])
 
+    # K2 at k = 64 (V = 27): sq, valid and nbrs bit-equal, ONE CUDA kernel
+    # a call; and the device ms of each schedule at the 1.08 m and 2.28 m
+    # / 16 calls' shapes
+    for key in ("k2_8_16", "k2_27_16"):
+        a2, kw2 = cap[key]
+        a2 = a2[:4]                               # ptable, row_idx, nc, queries
+        want = knn_rows.topk_from_table_reference(*a2, **kw2)
+        t2 = {}
+        for mode in knn_rows.MODES:
+            _held(f"K2 ({key}, {mode})", knn_rows._launch(*a2, None, **kw2, mode=mode), want)
+            t2[mode] = _device_ms(lambda: knn_rows._launch(*a2, None, **kw2, mode=mode), "fl_k2")
+        print(f"[smoke] map: K2 at V={a2[1].shape[1]}, k={kw2['k']} (N={a2[1].shape[0]}): "
+              f"schedule {knn_rows.schedule(a2[1].shape[1], kw2['k'])}, device ms by schedule "
+              f"{json.dumps({m: round(t, 5) if t else t for m, t in t2.items()})}, each "
+              f"bit-equal to the plain version", flush=True)
     a2, kw2 = cap["k2_64"]
-    a2 = a2[:4]                                   # ptable, row_idx, nc, queries
+    a2 = a2[:4]
     g = _once("K2 k=64", knn_rows.topk_from_table, lambda: knn_rows.topk_from_table(*a2, **kw2))
-    w = knn_rows.topk_from_table_reference(*a2, **kw2)
-    if not (torch.equal(g[1], w[1]) and torch.equal(g[2], w[2])):
-        _fail("K2 (k = 64) sq/valid differ from the plain version")
-    err = _maxerr(g[0][w[2]], w[0][w[2]])
-    if err != 0.0:
-        _fail(f"K2 (k = 64) neighbours differ where valid: {err:.3e}")
+    _held("K2 k=64", g, knn_rows.topk_from_table_reference(*a2, **kw2))
+    n2 = _cuda_launches(torch, lambda: knn_rows.topk_from_table(*a2, **kw2), "fl_k2")
+    if n2 != 1:
+        _fail(f"K2 (k = 64) ran {n2} CUDA kernels a call, not one")
     d2_2 = knn_rows.candidate_d2(a2[0][a2[1].long()], *a2[2:], E=kw2["E"], B=kw2["B"])[0]
-    report("knn_rows k=64", err, lambda: knn_rows.topk_from_table(*a2, **kw2),
+    report("knn_rows k=64", 0.0, lambda: knn_rows.topk_from_table(*a2, **kw2),
            lambda: knn_rows.topk_from_table_reference(*a2, **kw2),
            *_table_work(*a2, g, d2_2, kw2["E"]),
            lambda: torch.topk(d2_2, 64, dim=1, largest=False),
-           f"(radius_search 2.28 m / 64: N={a2[1].shape[0]}, V={a2[1].shape[1]}, k=64)",
-           launches=map_counts["knn_rows"], kernel="knn_rows")
+           f"(radius_search 2.28 m / 64: N={a2[1].shape[0]}, V={a2[1].shape[1]}, k=64, schedule "
+           f"{knn_rows.schedule(a2[1].shape[1], 64)}, 1 CUDA kernel a call)",
+           launches=map_counts["knn_rows"], kernel="knn_rows", prefix="fl_k2")
 
     # (c) eviction replay at the bench's soak settings
     seq_e = presets.bench_sequence(n_scans=40)
@@ -687,22 +716,28 @@ def _map_phase(dev, cfg, loc, stamps, acc, gyro, scans, wrappers, report):
     os.remove(path)
 
 
-def _cuda_launches(torch, fn, prefix: str, tries: int = 3):
+def _cuda_launches(torch, fn, prefix: str, tries: int = 6):
     """CUDA kernels named ``prefix*`` that one call of fn() launches, as
-    torch.profiler records them ("not measured" if it records no device
-    event in ``tries`` profiled calls: the profiler on the card has come
-    back empty now and then)."""
+    torch.profiler records them: the first of ``tries`` profiled calls that
+    records one ("not measured" if none records a device event, else 0).
+    The profiler on the card has come back empty now and then, and now and
+    then without a kernel launched as a thread-block cluster (K4, K6, K9)
+    whose launch the wrapper counted, with older trees' kernels as with
+    these; a call that launches two kernels still reads 2."""
     from torch.profiler import ProfilerActivity, profile
 
+    seen = False
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        if events:
-            return sum(e.count for e in events if _kname(e.key).startswith(prefix))
-    return "not measured"
+        n = sum(e.count for e in events if _kname(e.key).startswith(prefix))
+        if n:
+            return n
+        seen = seen or bool(events)
+    return 0 if seen else "not measured"
 
 
 def _replay_timed(torch, loc, method, stamps, acc, gyro, scans, census=None):
@@ -1291,7 +1326,9 @@ def main() -> None:
         return orig_deskew(*a)
 
     def knn_capture(ptable, row_idx, nc, q, active, **kw):
-        if cap.get("on") and "knn" not in cap:   # the window resolve
+        # on the main path only the window resolve goes through _launch
+        cap["n_window"] = cap.get("n_window", 0) + 1
+        if cap.get("on") and "knn" not in cap:
             cap["knn"] = (ptable, row_idx, nc, q, kw)
         return orig_knn(ptable, row_idx, nc, q, active, **kw)
 
@@ -1365,6 +1402,12 @@ def main() -> None:
               f"times in {args.scans} scans, not once an evaluation ({evals} a scan)")
     if main_counts["sort3"] != 2 * args.scans:
         _fail(f"K9 launched {main_counts['sort3']} times in {args.scans} scans, not twice a scan")
+    # K2: one window resolve a scan, one select launch an evaluation
+    n_window = cap.get("n_window", 0)
+    if n_window != args.scans or main_counts["knn_rows"] != (1 + evals) * args.scans:
+        _fail(f"K2 launched {main_counts['knn_rows']} times ({n_window} window resolves) in "
+              f"{args.scans} scans, not {1 + evals} a scan (one window resolve, one select "
+              f"launch an evaluation)")
     if syncs:
         _fail(f"the main path read the device {syncs} times (iekf.counters.host_syncs)")
     for key in ("h_model", "deskew", "knn", "loop", "loop_out", "sort"):
@@ -1412,6 +1455,9 @@ def main() -> None:
     for name in ("knn_rows", "fit_planes_select", "hstats", "update_body"):
         if fb_counts[name] <= 0:
             _fail(f"kernel {name} did not launch in the fallback phase")
+    if fb_counts["knn_rows"] != int(n_f):
+        _fail(f"the exact loop launched K2 {fb_counts['knn_rows']} times in {int(n_f)} "
+              f"evaluations, not once each (its select entry)")
     ex = _close("fallback x vs whole-loop x", st.as_vector(x_f), st.as_vector(xk), 1e-3, 2e-4)
     eP = _close("fallback P vs whole-loop P", P_f, Pk, 1e-3, 2e-4)
     print(f"[smoke] fallback: exact loop vs K6 on scan {capture_at}: max|dx| {ex:.2e} "
@@ -1475,41 +1521,102 @@ def main() -> None:
     report("deskew", err, k1, k1_plain, _nbytes(pts, t_pts, valid, *frames, *a),
            140 * int(valid.sum()), extra=f"(N={pts.shape[0]}, K={K1}, {n1} CUDA kernel a call)")
 
-    # K2 at the main path's window resolve — sq and valid bit-equal to the
-    # plain version (the gather, then the plain top-k), nbrs equal where finite
+    # K2 at the main path's window resolve — sq, valid and nbrs bit-equal
+    # to the plain version (the gather, then the plain top-k), invalid tail
+    # included, ONE CUDA kernel a call; the device ms of every schedule that
+    # takes k (the wrapper picks one from (V, k))
     ptab, ridx, nc, q, kw = cap["knn"]
+
+    def k2_one_kernel(name, fn):
+        n2 = _cuda_launches(torch, fn, "fl_k2")
+        if n2 != 1:
+            _fail(f"{name} ran {n2} CUDA kernels a call, not one")
 
     def k2t():
         return knn_rows.topk_from_table(ptab, ridx, nc, q, **kw)
 
     a = _once("K2", knn_rows.topk_from_table, k2t)
     b = knn_rows.topk_from_table_reference(ptab, ridx, nc, q, **kw)
-    if not (torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])):
-        _fail(f"K2 sq/valid differ from the plain version "
-              f"(max {_maxerr(a[1][b[2]], b[1][b[2]]):.3e})")
-    err = _maxerr(a[0][b[2]], b[0][b[2]])
-    if err != 0.0:
-        _fail(f"K2 neighbours differ where distances are finite: {err:.3e}")
+    _held("K2", a, b)
+    k2_one_kernel("K2", k2t)
+    modes = {}
+    for mode in knn_rows.MODES:
+        if mode == "block" or kw["k"] <= knn_rows.WARP_KMAX:
+            _held(f"K2 ({mode})", knn_rows._launch(ptab, ridx, nc, q, None, **kw, mode=mode), b)
+            modes[mode] = _device_ms(
+                lambda: knn_rows._launch(ptab, ridx, nc, q, None, **kw, mode=mode), "fl_k2")
     d2_k2 = knn_rows.candidate_d2(ptab[ridx.long()], nc, q, E=kw["E"], B=kw["B"])[0]
     nb2, ops2 = _table_work(ptab, ridx, nc, q, a, d2_k2, kw["E"])
-    report("knn_rows", err, k2t,
+    report("knn_rows", 0.0, k2t,
            lambda: knn_rows.topk_from_table_reference(ptab, ridx, nc, q, **kw), nb2, ops2,
            lambda: torch.topk(d2_k2, kw["k"], dim=1, largest=False),
-           f"(N={q.shape[0]}, V={ridx.shape[1]}, k={kw['k']})")
+           f"(N={q.shape[0]}, V={ridx.shape[1]}, k={kw['k']}, "
+           f"{float(torch.isfinite(d2_k2).float().mean()):.3f} valid, at most "
+           f"{int(torch.isfinite(d2_k2).sum(1).max())} columns a query; schedule "
+           f"{knn_rows.schedule(ridx.shape[1], kw['k'])}; device ms by schedule "
+           f"{json.dumps({m: round(t, 5) if t else t for m, t in modes.items()})}; 1 CUDA "
+           f"kernel a call; launches: the window resolves)",
+           launches=cap["n_window"], prefix="fl_k2")
+    del d2_k2
 
-    # K3 — the re-match's sets at the captured scan's predicted pose (the
-    # fallback phase's first evaluation): the window rank, and K2 without a
-    # flag on the idx rows and on every query, so all three sets are real;
-    # the budget first valid queries are marked stale.
+    # K2's select entry — the exact loop's re-match at the captured scan's
+    # predicted pose (the fallback phase's first evaluation), the budget
+    # first valid queries marked stale: at each branch code the taken branch bit-equal to the
+    # plain version (K2 on the idx rows, K2 on every query), ONE CUDA kernel
+    # a call, and under a clear flag
     glob0 = h.glob0
+    rows0 = h._rows(glob0)
+    stale = h.pc_valid & (torch.cumsum(h.pc_valid.to(torch.int32), 0) <= h.budget)
+    idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:h.budget]
+    skw = dict(E=kw["E"], B=kw["B"], k=h.k)
+    sel_args = (ptab, *rows0, glob0, idx)
+    want2 = knn_rows.topk_from_table_select_reference(*sel_args, **skw)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    dev2 = {}
+    for code, v, flag in ((0, 0, None), (1, int(stale.sum()), None), (2, h.budget + 1, None),
+                          ("clear flag", h.budget + 1, off)):
+        viol = torch.tensor(v, dtype=torch.int32, device=dev)
+
+        def k2s():
+            return knn_rows.topk_from_table_select(*sel_args, viol, **skw, active=flag)
+
+        got = _once(f"K2 select ({code})", knn_rows.topk_from_table, k2s)
+        if code in (1, 2):
+            _held(f"K2 select (branch {code})", got[code - 1], want2[code - 1])
+        dev2[code] = _device_ms(k2s, "fl_k2")
+        k2_one_kernel(f"K2 select ({code})", k2s)
+    viol2 = torch.tensor(h.budget + 1, dtype=torch.int32, device=dev)
+    modes2 = {}
+    for mode in knn_rows.MODES:
+        got = knn_rows._run(*sel_args[:4], None, viol2, idx, **skw, mode=mode)
+        _held(f"K2 select ({mode})", got[1], want2[1])
+        modes2[mode] = _device_ms(
+            lambda: knn_rows._run(*sel_args[:4], None, viol2, idx, **skw, mode=mode), "fl_k2")
+    d2_s = knn_rows.candidate_d2(ptab[rows0[0].long()], rows0[1], glob0, E=kw["E"],
+                                 B=kw["B"])[0]
+    # branch 2 (the full re-match): every query's rows, N outputs
+    report("knn_rows (select)", 0.0,
+           lambda: knn_rows.topk_from_table_select(*sel_args, viol2, **skw),
+           lambda: knn_rows.topk_from_table_select_reference(*sel_args, **skw),
+           *_table_work(ptab, rows0[0], rows0[1], glob0, want2[1], d2_s, kw["E"]),
+           lambda: torch.topk(d2_s, h.k, dim=1, largest=False),
+           f"(N={glob0.shape[0]}, budget {h.budget}, k={h.k}, branch 2, schedule "
+           f"{knn_rows.schedule(rows0[0].shape[1], h.k)}; device ms by branch code "
+           f"{json.dumps({c: round(t, 5) if t else t for c, t in dev2.items()})}, at branch 2 by "
+           f"schedule {json.dumps({m: round(t, 5) if t else t for m, t in modes2.items()})}; the taken "
+           f"branch bit-equal to the plain version, 1 CUDA kernel a call; launches: the select "
+           f"launches)",
+           launches=main_counts["knn_rows"] - cap["n_window"], kernel="knn_rows", prefix="fl_k2")
+    del d2_s
+
+    # K3 — the re-match's sets at the same pose and stale marks as K2's
+    # select row: the window rank, and K2 without a flag on the idx rows and
+    # on every query, so all three sets are real.
     fkw = dict(num_match_points=h.k, max_dist_plane=h.max_dist_plane,
                plane_threshold=h.plane_threshold)
     win = h._window_rank(glob0)
     fa = (win[0], win[1], torch.isfinite(win[1]))
-    rows0 = h._rows(glob0)
     full = h._topk(glob0, h.k, rows0)
-    stale = h.pc_valid & (torch.cumsum(h.pc_valid.to(torch.int32), 0) <= h.budget)
-    idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:h.budget]
     patch = h._topk(glob0[idx], h.k, (rows0[0][idx], rows0[1][idx]))
     sel = (win, patch, idx, stale, full)
 

@@ -1,6 +1,7 @@
 // K7's select: the k smallest (distance, column) pairs of one query, from
 // its valid columns compacted into shared memory in column order
-// (masked_topk.cu, both entries).
+// (masked_topk.cu, both entries; K2's block schedule through
+// table_rows.cuh).
 //
 // A caller first streams the query's validity once (its own Phase A:
 // dense byte mask or map-table rows) and, for every tile of columns,
@@ -107,6 +108,13 @@ FL_DEV void fl_hist_pick(FlCompact& sh, int kk) {
   __syncthreads();
 }
 
+// a point's squared distance bits, (dx² + dy²) + dz² (no contraction:
+// the library builds with --fmad=false)
+FL_DEV unsigned fl_d2_bits(float x, float y, float z, float qx, float qy, float qz) {
+  const float dx = x - qx, dy = y - qy, dz = z - qz;
+  return __float_as_uint(dx * dx + dy * dy + dz * dz);
+}
+
 FL_DEV unsigned fl_canon_nan(unsigned u) {
   return (u & 0x7FFFFFFFu) > 0x7F800000u ? 0x7FC00000u : u;   // every NaN after +inf, equal
 }
@@ -117,8 +125,10 @@ FL_DEV unsigned fl_canon_nan(unsigned u) {
 // first invalid columns, both in column order, written before the call;
 // bits[cap] scratch.  coord(c, x, y, z) loads column c's point; gbits(c)
 // is column c's distance bits with +inf (0x7F800000) where invalid, for
-// the global path.  Writes k rows of nbrs (3 floats), sq and valid.
-template <class Coord, class GBits>
+// the global path.  Writes k rows of nbrs (3 floats), sq and valid; sq is
+// +inf wherever the selected distance is not finite (K7's plain version)
+// or, with kRawSq, the distance itself, NaN where it is NaN (K2's).
+template <bool kRawSq, class Coord, class GBits>
 FL_DEV void fl_select_compacted(int n, int C, int k, int cap, float qx, float qy, float qz,
                                 const Coord& coord, const GBits& gbits, unsigned* bits,
                                 int* col, FlCompact& sh, float* nbrs, float* sq,
@@ -136,8 +146,7 @@ FL_DEV void fl_select_compacted(int n, int C, int k, int cap, float qx, float qy
     if (i < m) {
       float x, y, z;
       coord(col[i], x, y, z);
-      const float dx = x - qx, dy = y - qy, dz = z - qz;
-      const unsigned u = __float_as_uint(dx * dx + dy * dy + dz * dz);
+      const unsigned u = fl_d2_bits(x, y, z, qx, qy, qz);
       bits[i] = u;
       if (u >= 0x7F800000u) sh.nonfinite = 1;
       else dg = u >> 24;
@@ -158,7 +167,7 @@ FL_DEV void fl_select_compacted(int n, int C, int k, int cap, float qx, float qy
       const bool fin = u < 0x7F800000u;
       float x, y, z;
       coord(c, x, y, z);
-      sq[r] = fin ? __uint_as_float(u) : INFINITY;
+      sq[r] = (kRawSq || fin) ? __uint_as_float(u) : INFINITY;
       valid[r] = fin ? 1 : 0;
       nbrs[3 * r] = x;
       nbrs[3 * r + 1] = y;

@@ -21,14 +21,15 @@
 // 256 threads serves a query.  The block streams the validity once — the
 // dense entry 16 mask bytes a 16-byte load, two loads a thread in flight; the table
 // entry one thread a (row, entry) reading its four meta floats and block
-// coordinates, the next tile's loads issued before this tile's scan — and
+// coordinates, the next tile's loads issued before this tile's scan, with
+// the decoder K2 shares (table_rows.cuh) — and
 // compacts the valid columns into shared memory in column order (one
 // block scan a tile; warp ballots order a row's slots), keeping the first
 // k invalid columns for the tail.  The select then runs over the
 // compacted entries in shared memory (compact_select.cuh).  A query with
 // more valid columns than the shared capacity takes the multi-pass select
 // over global memory inside the same launch.
-#include "compact_select.cuh"
+#include "table_rows.cuh"
 
 // 4-bit mask of the nonzero bytes of w
 FL_DEV unsigned fl_nonzero4(unsigned w) {
@@ -117,118 +118,19 @@ FL_DEV void fl_k7_dense(const FlK7Args& a, int* dyn, FlCompact& sh) {
     if (!vq[c]) return 0x7F800000u;
     float x, y, z;
     coord(c, x, y, z);
-    const float dx = x - qx, dy = y - qy, dz = z - qz;
-    return __float_as_uint(dx * dx + dy * dy + dz * dz);
+    return fl_d2_bits(x, y, z, qx, qy, qz);
   };
   const size_t o = (size_t)q * k;
-  fl_select_compacted(n, C, k, cap, qx, qy, qz, coord, gbits, bits, col, sh, a.nbrs + 3 * o,
-                      a.sq + o, a.valid + o);
+  fl_select_compacted<false>(n, C, k, cap, qx, qy, qz, coord, gbits, bits, col, sh,
+                             a.nbrs + 3 * o, a.sq + o, a.valid + o);
 }
 
-// Phase A, table entry (E = 16): thread t of a tile takes entry e = t % 16
-// of row v = tile·FL_K7_NT/16 + t/16; a half-warp holds a row.  An entry is
-// kept when its stored voxel lies in the wanted block and its count is
-// positive; slot s of it is valid while s < count.  rows[v] is the row
-// index of (q, v), staged in shared memory; ncq the query's (V, 3) block
-// coordinates.
-FL_DEV int fl_compact_table(const float* __restrict__ ptable, const int* rows,
-                            const int* __restrict__ ncq, int V, int WP, int B, int k, int cap,
-                            int* col, FlCompact& sh) {
-  const int tid = threadIdx.x, lane = tid & 31, e = tid & 15, EB = 16 * B;
-  const unsigned half = 0xFFFFu << (lane & 16), below = (1u << lane) - 1u;
-  float vx = 0.f, vy = 0.f, vz = 0.f, cnt = 0.f;
-  int b0 = 0, b1 = 0, b2 = 0;
-  auto load = [&](int v) {
-    if (v < V) {
-      const float* r = ptable + (size_t)rows[v] * WP;
-      vx = r[e];
-      vy = r[16 + e];
-      vz = r[32 + e];
-      cnt = r[48 + e];
-      b0 = ncq[3 * v];
-      b1 = ncq[3 * v + 1];
-      b2 = ncq[3 * v + 2];
-    }
-  };
-  load(tid >> 4);
-  int nbase = 0, ibase = 0, par = 0;
-  for (int v0 = 0; v0 < V; v0 += FL_K7_NT / 16, par ^= 1) {
-    const int v = v0 + (tid >> 4);
-    const bool in = v < V;
-    const bool ok = in && (cnt > 0.0f) && (floorf(vx * 0.5f) == (float)b0) &&
-                    (floorf(vy * 0.5f) == (float)b1) && (floorf(vz * 0.5f) == (float)b2);
-    const float n_cnt = cnt;
-    load(v + FL_K7_NT / 16);   // the next tile's loads, in flight across this tile's scan
-    int nv = 0;
-    for (int s = 0; s < B; ++s) nv += (ok && (float)s < n_cnt) ? 1 : 0;
-    const int ni = in ? B - nv : 0;
-    int ev, ei, tv, ti;
-    fl_scan2(nv, ni, ev, ei, tv, ti, sh.wsum[par]);
-    // the row's bases: the exclusive sums at its entry 0
-    int pv = nbase + __shfl_sync(FL_FULL, ev, lane & 16);
-    int pi = ibase + __shfl_sync(FL_FULL, ei, lane & 16);
-    const int cv = v * EB + e;
-    for (int s = 0; s < B; ++s) {
-      const bool isv = ok && (float)s < n_cnt, isi = in && !isv;
-      const unsigned bv = __ballot_sync(FL_FULL, isv) & half;
-      const unsigned bi = __ballot_sync(FL_FULL, isi) & half;
-      if (isv) {
-        const int p = pv + __popc(bv & below);
-        if (p < cap) col[p] = cv + 16 * s;
-      } else if (isi) {
-        const int p = pi + __popc(bi & below);
-        if (p < k) sh.inv[p] = cv + 16 * s;
-      }
-      pv += __popc(bv);
-      pi += __popc(bi);
-    }
-    nbase += tv;
-    ibase += ti;
-  }
-  return nbase;
-}
-
+// The table entry: table_rows.cuh's block schedule (K2's block schedule
+// too), sq +inf wherever the distance is not finite.
 FL_DEV void fl_k7_table(const FlK7Args& a, int* dyn, FlCompact& sh) {
-  const int q = blockIdx.x, tid = threadIdx.x, V = a.V, WP = a.WP, B = a.B, k = a.k,
-            cap = a.cap, EB = 16 * B, C = a.C;
-  const float* ptable = a.ptable;
-  unsigned* bits = reinterpret_cast<unsigned*>(dyn);
-  int* col = dyn + cap;
-  int* rows = dyn + 2 * cap;
-  const int* ncq = a.nc + (size_t)q * V * 3;
-  const float qx = a.qs[3 * q], qy = a.qs[3 * q + 1], qz = a.qs[3 * q + 2];
-  for (int v = tid; v < V; v += FL_K7_NT) rows[v] = a.row_idx[(size_t)q * V + v];
-  __syncthreads();
-
-  const int n = fl_compact_table(ptable, rows, ncq, V, WP, B, k, cap, col, sh);
-  // column c → (row v, slot s, entry e); the slot's point, whatever its mask
-  auto slot = [&](int c) {
-    const int v = c / EB, r = c - v * EB;
-    return ptable + (size_t)rows[v] * WP + 64 + r;   // 4E + s·E + e, E = 16
-  };
-  auto coord = [&](int c, float& x, float& y, float& z) {
-    const float* p = slot(c);
-    x = p[0];
-    y = p[EB];
-    z = p[2 * EB];
-  };
-  auto gbits = [&](int c) -> unsigned {   // K2's decode of one column
-    const int v = c / EB, r = c - v * EB, s = r >> 4, e = r & 15;
-    const float* base = ptable + (size_t)rows[v] * WP;
-    const int* b = ncq + 3 * v;
-    const float cnt = base[48 + e];
-    const bool ok = (cnt > 0.0f) && (floorf(base[e] * 0.5f) == (float)b[0]) &&
-                    (floorf(base[16 + e] * 0.5f) == (float)b[1]) &&
-                    (floorf(base[32 + e] * 0.5f) == (float)b[2]) && ((float)s < cnt);
-    if (!ok) return 0x7F800000u;
-    float x, y, z;
-    coord(c, x, y, z);
-    const float dx = x - qx, dy = y - qy, dz = z - qz;
-    return __float_as_uint(dx * dx + dy * dy + dz * dz);
-  };
-  const size_t o = (size_t)q * k;
-  fl_select_compacted(n, C, k, cap, qx, qy, qz, coord, gbits, bits, col, sh, a.nbrs + 3 * o,
-                      a.sq + o, a.valid + o);
+  const size_t q = blockIdx.x, o = q * a.k;
+  fl_table_topk<false>(a.ptable, a.row_idx + q * a.V, a.nc + q * a.V * 3, a.V, a.WP, a.B, a.k,
+                       a.cap, a.qs + 3 * q, dyn, sh, a.nbrs + 3 * o, a.sq + o, a.valid + o);
 }
 
 // One kernel for both entries: the table entry when a.ptable is set.

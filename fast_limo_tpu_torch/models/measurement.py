@@ -11,11 +11,11 @@ The whole loop over the window runs in the K6 kernel (``loop_pack``); the
 exact per-iteration path here (``stats``) is its fallback: window match
 when no query is stale, the stale queries re-resolved in a patch of at
 most ``stale_budget`` queries (K2 at k), or a full re-match (K2 at k).
-The branch is chosen on the device from the stale count: K2's two
-resolves launch behind active flags, and ONE K3 launch
-(``plane_kernel.fit_planes_select``) fits every query on the row of the branch
-the count selects (``_rematch_counted``).  K2 runs on the map table's rows
-by index (``knn_rows.topk_from_table``), so no block-row gather is
+The branch is chosen on the device from the stale count: ONE K2 launch
+(``knn_rows.topk_from_table_select``) resolves the patch or every query
+as the count selects, and ONE K3 launch (``plane_kernel.fit_planes_select``)
+fits every query on the row of that branch (``_rematch_counted``).  K2
+runs on the map table's rows by index, so no block-row gather is
 materialised.
 """
 
@@ -135,24 +135,20 @@ class HModel:
     def _rematch_counted(self, glob, active=None):
         """``rematch`` plus the stale count (() int32) that chose its branch.
 
-        The JAX ``cond`` chain, decided on the device: K2 resolves the
-        ``budget`` first queries by staleness (flag ``active & 0 < viol ≤
-        budget``) and every query (flag ``active & viol > budget``); a clear
-        flag makes it return at once.  Then one K3 launch (flag ``active``)
-        fits each query on its window row, its patched row if it is stale
-        and the patch is taken, or its full row."""
+        The JAX ``cond`` chain, decided on the device: one K2 launch (its
+        select entry, flag ``active``) reads the stale count and resolves
+        the ``budget`` first queries by staleness (``0 < viol ≤ budget``),
+        every query (``viol > budget``) or nothing.  Then one K3 launch
+        (flag ``active``) fits each query on its window row, its patched
+        row if it is stale and the patch is taken, or its full row."""
         ranked = self._window_rank(glob)
         stale = self._stale_mask(glob, ranked[1])
         viol = torch.sum(stale, dtype=torch.int32)
-        some, few = viol > 0, viol <= self.budget
-        on_patch, on_full = some & few, ~few
-        if active is not None:
-            on_patch, on_full = active & on_patch, active & on_full
-        rows = self._rows(glob)
         # the stale queries first, in query order, as lax.top_k picks them
         idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:self.budget]
-        patch = self._topk(glob[idx], self.k, (rows[0][idx], rows[1][idx]), on_patch)
-        full = self._topk(glob, self.k, rows, on_full)
+        patch, full = knn_rows.topk_from_table_select(
+            self.m.ptable, *self._rows(glob), glob, idx, viol, E=mp.E, B=self.m.bucket,
+            k=self.k, active=active)
         n_abcd, good = plane_kernel.fit_planes_select(
             ranked, patch, idx, stale, full, viol, num_match_points=self.k,
             max_dist_plane=self.max_dist_plane, plane_threshold=self.plane_threshold,

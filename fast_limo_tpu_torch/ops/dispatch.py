@@ -39,7 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # scalars by value, so a launch uploads nothing)
 _SIGNATURES = {
     "fl_deskew": [_P, _P],
-    "fl_knn_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "fl_knn_rows": [_P] * 7 + [_I] * 9 + [_P] * 7,
     "fl_masked_topk": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "fl_masked_topk_table": [_P] * 4 + [_I] * 7 + [_P] * 4,
     "fl_fit_planes": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],

@@ -14,7 +14,9 @@ sum the same float32 products in different orders); K5 x atol 1e-4 +
 rtol 1e-3, P atol 1e-3 + rtol 1e-3; K6 x and P atol 2e-4 + rtol 1e-3 with
 n_iters, ok and the stale count exact; K7 (the dense entry, C up to
 211 000, and the map-table entry at 3 m and at the 13³-block radius) and
-K2 at k = 5 … 128 sq, valid and nbrs bit-equal, invalid tail included; K1
+K2 (every schedule at k = 1 … 128, V = 8 and 27; an overflowing warp list;
+NaN and overflowing distances; the select entry at each branch) sq, valid
+and nbrs bit-equal, invalid tail included; K1
 on stacked frames and on the scan step's two row sources; K9 bit-equal; K8 against float64 truth within
 12× the float32 library solve's error + 2e-5 of the largest entry (the rule
 of tests/test_gain.py; likewise against 12× its plain version's error) and
@@ -457,18 +459,115 @@ def test_k7_table_entry_on_a_replayed_map(scan, monkeypatch, radius, n, k, cap):
     assert torch.equal(res[2], inside) and torch.equal(res[1][inside], a[1][inside])
 
 
-@pytest.mark.parametrize("k", [5, 16, 64, 128])
-def test_k2_bit_equal_at_k(scan, k):
-    """K2's table entry (its select header unchanged by K7's redesign)
-    bit-equal to its plain version in sq, valid and nbrs."""
+def _k2_modes(k):
+    """Every schedule of K2 that takes k."""
+    return ["block"] + (["warp_min", "warp_radix"] if k <= knn_rows.WARP_KMAX else [])
+
+
+def _k2_diff(got, want):
+    """None if K2's outputs are bit-equal (a NaN distance equal to a NaN),
+    else the first query that differs, with both rows."""
+    same = torch.ones(want[1].shape[0], dtype=torch.bool, device=want[1].device)
+    for g, w in zip(got, want):
+        both_nan = torch.isnan(g) & torch.isnan(w) if g.is_floating_point() else torch.zeros_like(g)
+        eq = (g == w) | both_nan
+        same &= eq.reshape(eq.shape[0], -1).all(1)
+    if bool(same.all()):
+        return None
+    i = int(torch.nonzero(~same)[0])
+    return i, [t[i].tolist() for t in got], [t[i].tolist() for t in want]
+
+
+@pytest.mark.parametrize("V", [8, 27])
+@pytest.mark.parametrize("k", [1, 5, 12, 16, 32, 64, 128])
+def test_k2_bit_equal_at_k(scan, V, k):
+    """K2's table entry bit-equal to its plain version in sq, valid and
+    nbrs, invalid tail included: the schedule the wrapper picks and every
+    other schedule that takes k."""
     _, h, _ = scan
-    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size, neighborhood=-27)
+    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size,
+                                     neighborhood=8 if V == 8 else -27)
     kw = dict(E=mapper.E, B=h.m.bucket, k=k)
     a = _once(knn_rows.topk_from_table, lambda: knn_rows.topk_from_table(
         h.m.ptable, row_idx, ncb, h.glob0, **kw))
     b = knn_rows.topk_from_table_reference(h.m.ptable, row_idx, ncb, h.glob0, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+    for mode in _k2_modes(k):
+        a = knn_rows._launch(h.m.ptable, row_idx, ncb, h.glob0, None, **kw, mode=mode)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), mode
+
+
+@pytest.mark.parametrize("V", [8, 27])
+def test_k2_overflowing_warp_list_takes_the_exact_path(scan, monkeypatch, V):
+    """A warp list of 8 entries: every query with more valid columns takes
+    the warp's exact path over all columns, with the same bits."""
+    monkeypatch.setattr(knn_rows, "warp_cap", lambda V, B: 8)
+    _, h, _ = scan
+    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size,
+                                     neighborhood=8 if V == 8 else -27)
+    for k in (5, 32):
+        kw = dict(E=mapper.E, B=h.m.bucket, k=k)
+        b = knn_rows.topk_from_table_reference(h.m.ptable, row_idx, ncb, h.glob0, **kw)
+        assert int(torch.isfinite(b[1]).sum(1).max()) == k
+        for mode in ("warp_min", "warp_radix"):
+            a = knn_rows._launch(h.m.ptable, row_idx, ncb, h.glob0, None, **kw, mode=mode)
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), (mode, k)
+
+
+@pytest.mark.parametrize("value", [float("nan"), 1e30])
+def test_k2_nonfinite_valid_column(scan, value):
+    """A filled slot of a kept entry at NaN or an overflowing distance, in
+    the first filled row of every tenth query: every schedule gives the
+    plain stable sort (NaN after +inf, +inf among the invalid columns by
+    column)."""
+    _, h, _ = scan
+    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size)
+    ptab = h.m.ptable.clone()
+    rows = ptab[row_idx.long()]
+    cand, cval = mapper.cands_from_rows(rows, ncb, h.m.bucket)
+    N = row_idx.shape[0]
+    cval = cval.reshape(N, -1)
+    hit = 0
+    for i in range(0, N, 10):
+        cols = torch.nonzero(cval[i])
+        if len(cols):
+            c = int(cols[0])
+            v, r = divmod(c, mapper.E * h.m.bucket)
+            ptab[int(row_idx[i, v]), 4 * mapper.E + r] = value
+            hit += 1
+    assert hit > 10
+    for k in (5, 12, 64):
+        kw = dict(E=mapper.E, B=h.m.bucket, k=k)
+        b = knn_rows.topk_from_table_reference(ptab, row_idx, ncb, h.glob0, **kw)
+        for mode in _k2_modes(k):
+            a = knn_rows._launch(ptab, row_idx, ncb, h.glob0, None, **kw, mode=mode)
+            assert _k2_diff(a, b) is None, (mode, k, _k2_diff(a, b))
+
+
+def test_k2_select_entry_branches(scan):
+    """The select entry (one launch) at branch codes 0/1/2 and under a clear
+    flag: the taken branch bit-equal to the two-call composition (K2 on the
+    idx rows, K2 on every query); one launch a call."""
+    _, h, _ = scan
+    glob = h.glob0
+    row_idx, ncb = h._rows(glob)
+    kw = dict(E=mapper.E, B=h.m.bucket, k=h.k)
+    stale = h.pc_valid & (torch.cumsum(h.pc_valid.to(torch.int32), 0) <= h.budget // 2)
+    idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:h.budget]
+    want = (knn_rows.topk_from_table(h.m.ptable, row_idx[idx], ncb[idx], glob[idx], **kw),
+            knn_rows.topk_from_table(h.m.ptable, row_idx, ncb, glob, **kw))
+    on = torch.ones((), dtype=torch.bool, device=glob.device)
+    off = torch.zeros((), dtype=torch.bool, device=glob.device)
+    for v, taken, flag in ((0, None, None), (int(stale.sum()), 0, None), (h.budget, 0, on),
+                           (h.budget + 1, 1, None), (h.budget + 1, 1, on), (1, None, off)):
+        viol = torch.tensor(v, dtype=torch.int32, device=glob.device)
+        got = _once(knn_rows.topk_from_table, lambda: knn_rows.topk_from_table_select(
+            h.m.ptable, row_idx, ncb, glob, idx, viol, **kw, active=flag))
+        torch.cuda.synchronize()
+        assert got[0][0].shape == want[0][0].shape and got[1][0].shape == want[1][0].shape
+        if taken is not None:
+            assert all(torch.equal(x, y) for x, y in zip(got[taken], want[taken])), v
 
 
 def test_k2_at_k64_on_a_scan(scan):

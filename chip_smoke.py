@@ -126,7 +126,48 @@ Phases (each prints its own lines):
               ate_m < 0.15 and the dump every DebugOutput field, and its
               scan dispatches after the warm-up run under the sync census
               (no port line may be named).
-10. result  — the card's name and power limit, the kernels JSON line (K1-K9,
+10. data    — the new entry points at full width, each path's kernel
+              counts zeroed before it and read after it (K1, K2, K3's select
+              entry, K4, K5, K6 and K9 must launch on every path):
+              (a) for each untouched configs/{kitti,utbm,cat,ona}_tpu.yaml,
+                  `make-synthetic` exports 24 scans of 16384 points in the
+                  profile's sensor convention (HESAI absolute seconds for
+                  ona; a 3 s standstill for cat and ona, which calibrate;
+                  GPS fixes every 5 scans for utbm) and `sequence --config
+                  <yaml>` runs it through the CLI: 24 finite poses and ATE
+                  < 0.5 m against the synthetic truth (the scan count, ATE
+                  and per-scan wall p50/p95 printed), every dispatch after
+                  the first 4 under the sync census (no port line may be
+                  named); ona again with `--async`, its TUM file bit-equal to
+                  the synchronous run's;
+              (b) a KITTI raw drive written from the synthetic world (24
+                  .bin scans of 120000 float32 [x, y, z, intensity] points,
+                  OXTS rows with the IMU in columns 14:17 and 20:23, both
+                  timestamps.txt in KITTI's text format) through `kitti
+                  --config configs/kitti_tpu.yaml`: one finite pose a scan;
+                  ATE printed without a bound (KITTI's point times come
+                  from azimuth, not from the world);
+              (c) phase 3's corridor through SLAM in 4 packets a sweep
+                  (io/packets.PacketSlicer): 4 poses a sweep, ATE <
+                  max(3 x phase 3's, 0.15 m, 1.25 x the JAX package's ATE
+                  on the same 24 sweeps in packets, JAX_PACKET_CORRIDOR_ATE:
+                  on this 15 m/s corridor the reference itself misses
+                  max(3 x, 0.15 m)); then the soak
+                  (192 sweeps) in 3 packets: at least one loop closed, fewer
+                  than 1.5 x phase 9's keyframes, ATE < max(3 x phase 9's,
+                  0.15 m); no K9 sort longer than a scan or a map rebuild
+                  (the stitched sweep is never sorted whole);
+              (d) four sessions (the corridor at seeds 7-10, their
+                  ScanBatches captured through Localizer.on_dispatch) for
+                  12 ticks of parallel/batched's step, session 2 idle on
+                  ticks 4-5 (noop_batch, active False): every session's
+                  poses bit-equal to its own single-session steps, the idle
+                  state bit-equal across its idle ticks, ticks after the
+                  first under the sync census; tick ms p50/p95, ms a
+                  session-scan, cudaLaunchKernel a tick (profiler, two more
+                  ticks), peak memory and K6 = 4 launches a tick;
+              (e) the entry() twin: one step on the card, finite outputs.
+11. result  — the card's name and power limit, the kernels JSON line (K1-K9,
               K2 three times: the main path's window resolve, its select
               entry and the map path's k = 64; K7 twice: the dense entry and
               the table entry; K9 twice), then the final status line.
@@ -977,13 +1018,14 @@ def _kf_rmse(slam, seq) -> float:
 
 def _slam_phase(dev, cfg, counts, zero):
     """Phase 9: soak with loop closure, GPS corridor, session + relocalize,
-    the CLI."""
+    the CLI.  Returns the soak's keyframe count and ATE."""
     import contextlib
     import io
 
     import torch
 
     from fast_limo_tpu_torch import cli
+    from fast_limo_tpu_torch.io import synthetic
     from fast_limo_tpu_torch.models import pipeline as pl
     from fast_limo_tpu_torch.models.slam import SLAM
     from fast_limo_tpu_torch.ops import dispatch
@@ -1022,7 +1064,8 @@ def _slam_phase(dev, cfg, counts, zero):
     t_soak = time.perf_counter() - t0
     c = counts()
     est, gt = slam.positions(), seq.traj.pos(slam.stamps())
-    kf_rmse = _kf_rmse(slam, seq)
+    kf_rmse, soak_keyframes = _kf_rmse(slam, seq), len(slam.keyframes)
+    soak_ate = synthetic.ate_rmse(est, gt)
     tail_rmse = float(np.sqrt(np.mean(np.sum((est[-60:] - gt[-60:]) ** 2, axis=1))))
 
     def p50(v):
@@ -1031,7 +1074,7 @@ def _slam_phase(dev, cfg, counts, zero):
     print(f"[smoke] slam: (a) soak {len(est)} scans in {t_soak:.1f} s (data included) | loops "
           f"{slam.n_loops_closed} | keyframes {len(slam.keyframes)} | map rebuilds "
           f"{slam.n_rebuilds} | keyframe RMSE {kf_rmse:.4f} m | last-60-scan RMSE "
-          f"{tail_rmse:.4f} m | launches {json.dumps(c)}", flush=True)
+          f"{tail_rmse:.4f} m | ATE {soak_ate:.4f} m | launches {json.dumps(c)}", flush=True)
     print(f"[smoke] slam: (a) wall ms p50: loop detection (ScanContext + ICP + refinement) "
           f"{p50(wall['detect'])} | graph optimise + state correction {p50(wall['optimize'])} | "
           f"map rebuild {p50(wall['rebuild'])}", flush=True)
@@ -1128,6 +1171,436 @@ def _slam_phase(dev, cfg, counts, zero):
         _fail(f"the CLI's step synchronized the host at port lines {_port_syncs(census)}")
     os.remove(out_path)
     os.remove(dump_path)
+    return soak_keyframes, soak_ate
+
+
+MAIN_KERNELS = ("deskew", "knn_rows", "fit_planes_select", "hstats", "update_body",
+                "update_loop", "sort3")
+# The JAX package's ATE on phase 10 (c)'s replay (phase 3's corridor, 24
+# sweeps in 4 packets at kitti_like_cfg, 32768 slots) on the CPU: `PYTHONPATH=.
+# python tests/test_torch_packet_corridor.py --sweeps 24 --slots 32768`.  The
+# reference itself drifts past max(3 x the sweep ATE, 0.15 m) there, so (c)
+# also accepts the port within 1.25 x of it, the relative tolerance
+# tests/test_torch_packet_corridor.py holds the two packages to.
+JAX_PACKET_CORRIDOR_ATE = 0.1872
+# (profile, sensor type, standstill s, GPS every n scans): each configs/<p>_tpu.yaml
+# in its own sensor's time convention; cat and ona calibrate over 3 s
+PROFILES = (("kitti", 1, 0.0, 0), ("utbm", 1, 0.0, 5), ("cat", 1, 3.0, 0), ("ona", 2, 3.0, 0))
+DATA_SCANS = 24
+
+
+def _launched(name, c):
+    """Fail unless every kernel of the main path launched on the path ``name``."""
+    idle = [k for k in MAIN_KERNELS if c[k] <= 0]
+    if idle:
+        _fail(f"{name}: kernels {idle} did not launch")
+
+
+def _cli(argv):
+    """cli.main(argv) in-process with its output captured → (stdout, its
+    last JSON line as a dict); fails on a non-zero return or no JSON line."""
+    import contextlib
+    import io
+
+    from fast_limo_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    if rc or not lines:
+        _fail(f"the CLI {argv[:2]} returned {rc} and printed no JSON line")
+    return buf.getvalue(), json.loads(lines[-1])
+
+
+def _tum_ate(name, path, n_want, gt_fn):
+    """The ATE (m) of a TUM file's positions against ``gt_fn(stamps)``;
+    fails on a missing or non-finite pose."""
+    from fast_limo_tpu_torch.io import synthetic
+
+    rows = np.loadtxt(path).reshape(-1, 8)
+    if len(rows) != n_want or not np.isfinite(rows).all():
+        _fail(f"{name}: {len(rows)} poses (want {n_want}) or non-finite values")
+    return synthetic.ate_rmse(rows[:, 1:4], gt_fn(rows[:, 0]))
+
+
+def _timed_dispatches(fn, census):
+    """fn() with every Localizer._dispatch timed on the host between two
+    synchronises, the dispatches after the first WARMUP under the sync
+    census (entries added to ``census``); returns (fn(), [ms])."""
+    import torch
+
+    from fast_limo_tpu_torch.models.localizer import Localizer
+
+    ms, orig = [], Localizer._dispatch
+
+    def timed(self, scan):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if len(ms) >= WARMUP:
+            census.extend(_sync_calls(lambda: orig(self, scan))[1])
+        else:
+            orig(self, scan)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+
+    Localizer._dispatch = timed
+    try:
+        return fn(), ms
+    finally:
+        Localizer._dispatch = orig
+
+
+def _readers_phase(dev, counts, zero, work):
+    """Phase 10 (a): make-synthetic → sequence for the four profiles."""
+    from fast_limo_tpu_torch.io import synthetic
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    dv = ["--device", dev.type]
+    for name, sensor, standstill, gps in PROFILES:
+        d, tum = os.path.join(work, name), os.path.join(work, f"{name}.tum")
+        _cli(["make-synthetic", "--dir", d, "--scans", str(DATA_SCANS), "--sensor-type",
+              str(sensor), "--standstill", str(standstill), "--gps-every", str(gps),
+              "--seed", "0"] + dv)
+        yaml = os.path.join(repo, "configs", f"{name}_tpu.yaml")
+        census = []
+        zero()
+        (_out, info), ms = _timed_dispatches(
+            lambda: _cli(["sequence", "--data", d, "--config", yaml, "--out", tum] + dv), census)
+        c = counts()
+        synth = synthetic.SyntheticSequence(seed=0, n_scans=DATA_SCANS, points_per_scan=16384)
+        ate = _tum_ate(f"sequence {name}", tum, DATA_SCANS,
+                       lambda t: synth.traj.pos(t - standstill))
+        steady = np.asarray(ms[WARMUP:])
+        sites = {f: census.count(f) for f in sorted(set(census))}
+        print(f"[smoke] data: (a) {name}_tpu.yaml (sensor {sensor}, standstill {standstill} s, "
+              f"GPS every {gps or '-'}): {json.dumps(info)} | {len(ms)} dispatches | ATE "
+              f"{ate:.4f} m | scan ms p50 {np.percentile(steady, 50):.2f} p95 "
+              f"{np.percentile(steady, 95):.2f} | launches {json.dumps(c)} | census of "
+              f"{len(steady)} steady scans: {len(census)} synchronizing calls "
+              f"{json.dumps(sites)}", flush=True)
+        if info["scans"] != DATA_SCANS or not ate < 0.5:
+            _fail(f"sequence {name}: {info['scans']} scans, ATE {ate:.4f} m (< 0.5 m wanted)")
+        _launched(f"sequence {name}", c)
+        if _port_syncs(census):
+            _fail(f"sequence {name}: synchronized the host at port lines {_port_syncs(census)}")
+        if name == "ona":   # --async must give the synchronous run's file bit for bit
+            tum_a = os.path.join(work, "ona_async.tum")
+            _cli(["sequence", "--async", "--data", d, "--config", yaml, "--out", tum_a] + dv)
+            with open(tum, "rb") as fs, open(tum_a, "rb") as fa:
+                same = fs.read() == fa.read()
+            print(f"[smoke] data: (a) {name} --async: TUM "
+                  f"{'bit-equal to' if same else 'DIFFERENT from'} the synchronous run's",
+                  flush=True)
+            if not same:
+                _fail("sequence --async differs from the synchronous run")
+
+
+def _write_kitti_drive(root, synth, n_scans, base="2011-09-26 13:02:25"):
+    """The synthetic world in KITTI's raw-sync layout: float32 [x, y, z,
+    intensity] .bin scans, OXTS rows (30 columns) with the body-frame
+    acceleration in 14:17 and the rates in 20:23, and both timestamps.txt
+    files in KITTI's text format.  Returns the stamp of ``base``."""
+    import datetime as dt
+
+    t0 = dt.datetime.strptime(base, "%Y-%m-%d %H:%M:%S")
+
+    def stamp_line(t):
+        ns = int(round(t * 1e9))
+        when = t0 + dt.timedelta(seconds=ns // 10 ** 9)
+        return f"{when:%Y-%m-%d %H:%M:%S}.{ns % 10 ** 9:09d}\n"
+
+    vp, ox = os.path.join(root, "velodyne_points"), os.path.join(root, "oxts")
+    os.makedirs(os.path.join(vp, "data"), exist_ok=True)
+    os.makedirs(os.path.join(ox, "data"), exist_ok=True)
+    with open(os.path.join(vp, "timestamps.txt"), "w") as f:
+        for i in range(n_scans):
+            stamp, pts, _t = synth.scan(i)
+            f.write(stamp_line(stamp))
+            rows = np.zeros((len(pts), 4), np.float32)
+            rows[:, :3] = pts
+            rows.tofile(os.path.join(vp, "data", f"{i:010d}.bin"))
+    stamps, acc, gyro = synth.imu_stream()
+    with open(os.path.join(ox, "timestamps.txt"), "w") as f:
+        for k in range(len(stamps)):
+            f.write(stamp_line(stamps[k]))
+            row = np.zeros(30)
+            row[14:17], row[20:23] = acc[k], gyro[k]
+            np.savetxt(os.path.join(ox, "data", f"{k:010d}.txt"), row[None], fmt="%.9f")
+    return t0.timestamp()
+
+
+def _kitti_phase(dev, counts, zero, work):
+    """Phase 10 (b): a KITTI raw drive written from the synthetic world,
+    through the CLI's kitti subcommand at configs/kitti_tpu.yaml."""
+    from fast_limo_tpu_torch.io import synthetic
+
+    synth = synthetic.SyntheticSequence(seed=0, n_scans=DATA_SCANS, points_per_scan=120000)
+    drive, tum = os.path.join(work, "drive"), os.path.join(work, "kitti_drive.tum")
+    base = _write_kitti_drive(drive, synth, DATA_SCANS)
+    yaml = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "kitti_tpu.yaml")
+    zero()
+    t = time.perf_counter()
+    _out, info = _cli(["kitti", "--drive", drive, "--config", yaml, "--out", tum,
+                       "--device", dev.type])
+    wall = time.perf_counter() - t
+    c = counts()
+    ate = _tum_ate("kitti", tum, DATA_SCANS, lambda s: synth.traj.pos(s - base))
+    print(f"[smoke] data: (b) kitti drive, {DATA_SCANS} scans x 120000 points (stride-"
+          f"downsampled to the profile's 32768 slots): {json.dumps(info)} in {wall:.1f} s | ATE "
+          f"{ate:.4f} m (point times from azimuth, not the world's: no bound) | launches "
+          f"{json.dumps(c)}", flush=True)
+    if info["scans"] != DATA_SCANS:
+        _fail(f"kitti: {info['scans']} scans, want {DATA_SCANS}")
+    _launched("kitti", c)
+
+
+def _packet_phase(dev, cfg, counts, zero, main_ate, full_soak):
+    """Phase 10 (c): phase 3's corridor in 4 packets a sweep through SLAM,
+    then the soak in 3 (``full_soak``: phase 9's full-sweep keyframe count
+    and ATE)."""
+    import torch
+
+    from fast_limo_tpu_torch.io import synthetic
+    from fast_limo_tpu_torch.io.packets import PacketSlicer
+    from fast_limo_tpu_torch.models.slam import SLAM
+    from fast_limo_tpu_torch.ops import sort
+    from fast_limo_tpu_torch.utils import presets
+
+    sizes, o_sort = set(), sort._launch
+
+    def sort_sizes(*a):
+        sizes.add(int(a[0].shape[0]))
+        return o_sort(*a)
+
+    def replay(slam, seq, n_packets):
+        stamps, acc, gyro = seq.imu_stream()
+        scans = [seq.scan(i) for i in range(seq.n_scans)]
+        slicer, si = PacketSlicer(n_packets=n_packets), 0
+        for k in range(len(stamps)):
+            slam.update_imu(stamps[k], acc[k], gyro[k])
+            while si < len(scans) and scans[si][0] <= stamps[k]:
+                for p_pts, p_traw, p_st in slicer.packets(*scans[si][1:], scans[si][0]):
+                    slam.update_pointcloud(p_pts, p_traw, p_st)
+                si += 1
+        slam.flush()
+        torch.cuda.synchronize()
+
+    sort._launch = sort_sizes
+    try:
+        seq = presets.bench_sequence(n_scans=DATA_SCANS)
+        slam = SLAM(cfg, device=dev)
+        zero()
+        t = time.perf_counter()
+        replay(slam, seq, 4)
+        wall = time.perf_counter() - t
+        c = counts()
+        est = slam.positions()
+        ate = synthetic.ate_rmse(est, seq.traj.pos(slam.stamps()))
+        print(f"[smoke] data: (c) corridor, {DATA_SCANS} sweeps in 4 packets: {len(est)} poses "
+              f"in {wall:.1f} s ({1e3 * wall / max(len(est), 1):.1f} ms a packet) | ATE "
+              f"{ate:.4f} m (full sweeps, phase 3: {main_ate:.4f} m) | keyframes "
+              f"{len(slam.keyframes)} | K9 sizes {sorted(sizes)} | launches {json.dumps(c)}",
+              flush=True)
+        if len(est) != 4 * DATA_SCANS or not np.isfinite(est).all():
+            _fail(f"packet corridor: {len(est)} poses (want {4 * DATA_SCANS}) or non-finite")
+        want = max(3.0 * main_ate, 0.15, 1.25 * JAX_PACKET_CORRIDOR_ATE)
+        print(f"[smoke] data: (c) corridor packet ATE {ate:.4f} m against max(3 x {main_ate:.4f}"
+              f", 0.15, 1.25 x JAX's {JAX_PACKET_CORRIDOR_ATE}) = {want:.4f} m; against max(3 x,"
+              f" 0.15 m) alone: {'within' if ate < max(3.0 * main_ate, 0.15) else 'over'}",
+              flush=True)
+        if not ate < want:
+            _fail(f"packet corridor ATE {ate:.4f} m >= {want:.4f} m")
+        _launched("packet corridor", c)
+        cap = max(cfg.tpu.max_points_per_scan,
+                  presets.soak_loop_cfg().rebuild_batch * presets.soak_loop_cfg().rebuild_points)
+
+        seq = presets.soak_sequence(192)
+        soak = SLAM(cfg, presets.soak_loop_cfg(), device=dev)
+        soak.loc.evict_radius, soak.loc.evict_occupancy = 30.0, 0.002
+        zero()
+        t = time.perf_counter()
+        replay(soak, seq, 3)
+        wall = time.perf_counter() - t
+        c = counts()
+        est = soak.positions()
+        kf_rmse = _kf_rmse(soak, seq)
+        soak_ate = synthetic.ate_rmse(est, seq.traj.pos(soak.stamps()))
+        print(f"[smoke] data: (c) soak, {seq.n_scans} sweeps in 3 packets: {len(est)} poses in "
+              f"{wall:.1f} s"
+              f" | loops {soak.n_loops_closed} | keyframes {len(soak.keyframes)} (full sweeps, "
+              f"phase 9: {full_soak[0]}) | map rebuilds {soak.n_rebuilds} | keyframe RMSE "
+              f"{kf_rmse:.4f} m | ATE {soak_ate:.4f} m (full sweeps, phase 9: "
+              f"{full_soak[1]:.4f} m) | K9 sizes {sorted(sizes)} | launches {json.dumps(c)}",
+              flush=True)
+        if len(est) != 3 * seq.n_scans or not np.isfinite(est).all():
+            _fail(f"packet soak: {len(est)} poses (want {3 * seq.n_scans}) or non-finite")
+        if soak.n_loops_closed < 1:
+            _fail("the packet soak closed no loop")
+        if not len(soak.keyframes) < 1.5 * full_soak[0]:
+            _fail(f"packet soak: {len(soak.keyframes)} keyframes >= 1.5 x {full_soak[0]}")
+        if not soak_ate < max(3.0 * full_soak[1], 0.15):
+            _fail(f"packet soak ATE {soak_ate:.4f} m >= max(3 x {full_soak[1]:.4f}, 0.15) m")
+        if max(sizes, default=0) > cap:
+            _fail(f"K9 sorted {max(sizes)} elements, more than a scan or a rebuild ({cap}): "
+                  f"a stitched sweep was sorted whole")
+        _launched("packet soak", c)
+    finally:
+        sort._launch = o_sort
+
+
+def _fleet_phase(dev, cfg, counts, zero):
+    """Phase 10 (d): four sessions on one card through the batched step."""
+    import torch
+
+    from fast_limo_tpu_torch.models import iekf
+    from fast_limo_tpu_torch.models import pipeline as pl
+    from fast_limo_tpu_torch.models.localizer import Localizer
+    from fast_limo_tpu_torch.parallel import batched
+    from fast_limo_tpu_torch.utils import presets
+
+    S, TICKS, IDLE, IDLE_TICKS = 4, 12, 2, (4, 5)
+    sessions = []
+    for seed in range(7, 7 + S):
+        loc, cap = Localizer(cfg, device=dev), []
+        loc.on_dispatch = lambda sp, ip, cap=cap: cap.append(
+            batched.batch_from_packs(cfg, sp, ip, dev))
+        presets.replay(loc, presets.bench_sequence(seed=seed, n_scans=TICKS))
+        if len(cap) != TICKS:
+            _fail(f"fleet: session seed {seed} dispatched {len(cap)} scans, want {TICKS}")
+        sessions.append(cap)
+    # which batch each session steps on each tick (None: idle)
+    plan = [[None if (i == IDLE and k in IDLE_TICKS) else
+             k - (len(IDLE_TICKS) if (i == IDLE and k > max(IDLE_TICKS)) else 0)
+             for i in range(S)] for k in range(TICKS)]
+    step = batched.build_batched_scan_step(cfg, dev)
+    noop = batched.noop_batch(cfg, dev)
+    on = torch.ones(S, dtype=torch.bool, device=dev)
+    idle = torch.tensor([i != IDLE for i in range(S)], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    states = batched.init_batched_state(cfg, S, dev)
+    state_bytes = _nbytes(batched.select_session(states, 0))
+    zero()
+    iekf.counters.loop_fallbacks = 0
+    census, tick_ms, poses, frozen = [], [], [], None
+    for k in range(TICKS):
+        bb = batched.stack_batches([noop if j is None else sessions[i][j]
+                                    for i, j in enumerate(plan[k])])
+        act = idle if None in plan[k] else on
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if k:
+            (states, outs), syncs = _sync_calls(lambda: step(states, bb, act))
+            census.extend(syncs)
+        else:
+            states, outs = step(states, bb, act)
+        torch.cuda.synchronize()
+        tick_ms.append(1e3 * (time.perf_counter() - t))
+        poses.append((outs.pos, outs.quat))
+        if k + 1 == min(IDLE_TICKS):
+            frozen = [t_.clone() for t_ in _leaves(batched.select_session(states, IDLE))]
+        elif k in IDLE_TICKS:
+            now = _leaves(batched.select_session(states, IDLE))
+            if not all(torch.equal(a, b) for a, b in zip(frozen, now)):
+                _fail(f"fleet: the idle session's state changed on tick {k}")
+    c = counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    fallbacks = iekf.counters.loop_fallbacks
+    # every session's poses against its own single-session steps
+    inner = pl.build_scan_step(cfg, dev)
+    for i in range(S):
+        s = pl.init_state(cfg, dev)
+        for k in range(TICKS):
+            j = plan[k][i]
+            if j is None:
+                continue
+            s, out = inner(s, sessions[i][j])
+            pos, quat = poses[k]
+            if not (torch.equal(out.pos, pos[i]) and torch.equal(out.quat, quat[i])):
+                _fail(f"fleet: session {i} tick {k} differs from its single-session step")
+    # cudaLaunchKernel calls a tick, from the profiler over two more ticks
+    from torch.profiler import ProfilerActivity, profile
+
+    bb = batched.stack_batches([sessions[i][-1] for i in range(S)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(states, bb, on)
+        torch.cuda.synchronize()
+    host = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
+    dev_ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    n_launch = sum(e.count for e in host if e.key.startswith("cudaLaunchKernel")) / 2
+    busy = sum(e.self_device_time_total for e in dev_ev) / 2 / 1e3 if dev_ev else None
+    steady = np.asarray(tick_ms[1:])
+    full = np.asarray([m for k, m in enumerate(tick_ms) if k and None not in plan[k]])
+    sites = {f: census.count(f) for f in sorted(set(census))}
+    print(f"[smoke] data: (d) fleet S = {S}, {TICKS} ticks (session {IDLE} idle on ticks "
+          f"{list(IDLE_TICKS)}): every session bit-equal to its single-session steps, the idle "
+          f"state bit-equal across its idle ticks | tick ms p50 {np.percentile(steady, 50):.2f}"
+          f" p95 {np.percentile(steady, 95):.2f} (first {tick_ms[0]:.1f}) | ms a session-scan "
+          f"p50 {np.percentile(full, 50) / S:.2f} | cudaLaunchKernel {n_launch:.0f} a tick "
+          f"({n_launch / S:.0f} a session-scan), device busy {_fmt(busy)} a tick | peak memory "
+          f"{peak / 2 ** 20:.1f} MiB over the states' {S} x {state_bytes / 2 ** 20:.1f} MiB | "
+          f"loop fallbacks {fallbacks} in {S * TICKS} session-steps", flush=True)
+    per_tick = {k: v / TICKS for k, v in c.items() if v}
+    print(f"[smoke] data: (d) fleet launches {json.dumps(c)} ({json.dumps(per_tick)} a tick) | "
+          f"census of {TICKS - 1} ticks: {len(census)} synchronizing calls {json.dumps(sites)}",
+          flush=True)
+    if c["update_loop"] != S * TICKS:
+        _fail(f"fleet: K6 launched {c['update_loop']} times, want {S * TICKS} (a session a tick)")
+    _launched("fleet", c)
+    if _port_syncs(census):
+        _fail(f"fleet: the batched step synchronized the host at port lines {_port_syncs(census)}")
+
+
+def _leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _entry_phase(dev, counts, zero):
+    """Phase 10 (e): the entry() twin, one step on the card."""
+    import torch
+
+    from fast_limo_tpu_torch import entry
+
+    step, (state, batch) = entry.entry(device=dev)
+    zero()
+    s2, out = step(state, batch)
+    torch.cuda.synchronize()
+    c = counts()
+    finite = all(bool(torch.isfinite(t).all()) for t in (out.pos, out.quat, out.vel, s2.P))
+    pos = np.array2string(out.pos.cpu().numpy(), precision=6)
+    print(f"[smoke] data: (e) entry(): pos {pos}, n_iters "
+          f"{int(out.n_iters)}, map points {int(s2.map.num_points)} | launches {json.dumps(c)}",
+          flush=True)
+    if not finite or int(s2.map.num_points) <= 0:
+        _fail("entry(): non-finite outputs or an empty map")
+    _launched("entry()", c)
+
+
+def _data_phase(dev, cfg, counts, zero, main_ate, soak):
+    """Phase 10: the data readers, the CLI, packets, the fleet, entry()."""
+    import shutil
+
+    from fast_limo_tpu_torch.ops import dispatch
+
+    work = os.path.join(dispatch.BUILD_DIR, "smoke_data")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        _readers_phase(dev, counts, zero, work)
+        _kitti_phase(dev, counts, zero, work)
+        _packet_phase(dev, cfg, counts, zero, main_ate, soak)
+        _fleet_phase(dev, cfg, counts, zero)
+        _entry_phase(dev, counts, zero)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def _compare(args, smi) -> None:
@@ -1838,9 +2311,12 @@ def main() -> None:
             _profile(torch, Localizer, c, stamps, acc, gyro, scans, label)
 
     # ---- 9. the SLAM engine and its CLI ----
-    _slam_phase(dev, cfg, counts, zero)
+    soak = _slam_phase(dev, cfg, counts, zero)
 
-    # ---- 10. result ----
+    # ---- 10. the data readers, the CLI's data subcommands, packets, the fleet ----
+    _data_phase(dev, cfg, counts, zero, ate, soak)
+
+    # ---- 11. result ----
     print(smi)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,11 @@
 // Host-side native runtime of fast_limo_tpu_torch (the port's copy of the
-// ring buffer and the int16 scan packer of the JAX package's host runtime,
-// csrc/fastlimo_host.cpp; the KITTI parser and the filter chain are not
-// used by the port and are not copied).
+// JAX package's host runtime, csrc/fastlimo_host.cpp, plus the int16 scan
+// packer of the quantized transfer):
 //
+//  * KITTI velodyne .bin parsing with azimuth-derived per-point times
+//    (io/kitti.KittiDrive)
+//  * the preprocessing filter chain + time sort into padded arrays
+//    (io/native.preprocess)
 //  * a lock-free SPSC ring buffer for sensor ingestion threads
 //    (io/stream.AsyncIngest)
 //  * the one-pass int16 scan packer of the quantized transfer
@@ -13,10 +16,103 @@
 #include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <algorithm>
+#include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// KITTI velodyne .bin → x,y,z,intensity + azimuth-based relative time
+// ---------------------------------------------------------------------------
+
+// Returns number of points read (≤ max_points), fills xyz (n*3), intensity
+// (n), t_rel (n; seconds in [0, sweep_period) derived from azimuth — the
+// standard KITTI convention: the HDL-64 spins clockwise starting at the rear).
+int64_t flh_parse_kitti_bin(const char* path, float* xyz, float* intensity,
+                            float* t_rel, int64_t max_points,
+                            double sweep_period) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -1;
+  std::vector<float> buf(4096 * 4);
+  int64_t n = 0;
+  while (n < max_points) {
+    size_t got = fread(buf.data(), sizeof(float) * 4, 4096, f);
+    if (got == 0) break;
+    for (size_t i = 0; i < got && n < max_points; i++, n++) {
+      xyz[n * 3 + 0] = buf[i * 4 + 0];
+      xyz[n * 3 + 1] = buf[i * 4 + 1];
+      xyz[n * 3 + 2] = buf[i * 4 + 2];
+      intensity[n] = buf[i * 4 + 3];
+    }
+    if (got < 4096) break;
+  }
+  fclose(f);
+  // azimuth → relative time, KITTI/SuMa convention: sweep starts at the
+  // rear (-x) and the firing azimuth increases counterclockwise, i.e.
+  // t = (atan2(y,x) + π) / 2π · period.
+  for (int64_t i = 0; i < n; i++) {
+    float x = xyz[i * 3 + 0], y = xyz[i * 3 + 1];
+    double az = std::atan2((double)y, (double)x);     // [-π, π], 0 = +x
+    double from_start = az + M_PI;                    // 0 at rear, grows CCW
+    if (from_start < 0) from_start += 2.0 * M_PI;
+    if (from_start >= 2.0 * M_PI) from_start -= 2.0 * M_PI;
+    t_rel[i] = (float)(from_start / (2.0 * M_PI) * sweep_period);
+  }
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// preprocessing chain: crop/min-dist/rate/FoV masks + time sort + pad
+// (counterpart of Localizer.cpp:262-302 + deskew sort 785-805)
+// ---------------------------------------------------------------------------
+
+int64_t flh_preprocess(
+    const float* xyz, const float* t_rel, int64_t n_in,
+    // filters
+    int crop_active, const float* crop_min, const float* crop_max,
+    int dist_active, float min_dist,
+    int rate_active, int rate_value,
+    int fov_active, float fov_angle,
+    // outputs, padded to n_out capacity
+    float* out_xyz, float* out_t, uint8_t* out_valid, int64_t n_out) {
+  struct Rec { float t; int32_t idx; };
+  std::vector<Rec> keep;
+  keep.reserve((size_t)n_in);
+  const float min_d2 = min_dist * min_dist;
+  for (int64_t i = 0; i < n_in; i++) {
+    const float x = xyz[i * 3], y = xyz[i * 3 + 1], z = xyz[i * 3 + 2];
+    if (!std::isfinite(x) || !std::isfinite(y) || !std::isfinite(z)) continue;
+    if (crop_active &&
+        x >= crop_min[0] && x <= crop_max[0] &&
+        y >= crop_min[1] && y <= crop_max[1] &&
+        z >= crop_min[2] && z <= crop_max[2])
+      continue;                                        // negative crop box
+    if (dist_active && (x * x + y * y + z * z) <= min_d2) continue;
+    if (rate_active && (i % rate_value) != 0) continue;
+    if (fov_active && std::fabs(std::atan2(y, x)) >= fov_angle) continue;
+    keep.push_back({t_rel[i], (int32_t)i});
+  }
+  std::stable_sort(keep.begin(), keep.end(),
+                   [](const Rec& a, const Rec& b) { return a.t < b.t; });
+  int64_t n_kept = (int64_t)keep.size();   // reported pre-truncation
+  int64_t n = std::min<int64_t>(n_kept, n_out);
+  for (int64_t j = 0; j < n; j++) {
+    const int32_t i = keep[j].idx;
+    out_xyz[j * 3 + 0] = xyz[i * 3 + 0];
+    out_xyz[j * 3 + 1] = xyz[i * 3 + 1];
+    out_xyz[j * 3 + 2] = xyz[i * 3 + 2];
+    out_t[j] = keep[j].t;
+    out_valid[j] = 1;
+  }
+  for (int64_t j = n; j < n_out; j++) {
+    out_xyz[j * 3] = out_xyz[j * 3 + 1] = out_xyz[j * 3 + 2] = 0.f;
+    out_t[j] = 0.f;
+    out_valid[j] = 0;
+  }
+  return n_kept;
+}
 
 // ---------------------------------------------------------------------------
 // lock-free SPSC byte ring (sensor ingestion thread → dispatch thread)

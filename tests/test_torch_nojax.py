@@ -1,11 +1,14 @@
 """fast_limo_tpu_torch never imports JAX nor the JAX package: a fresh
-interpreter imports the port, runs two tiny CPU scan steps through the
+interpreter in which importing either raises imports the port, runs two tiny CPU scan steps through the
 Localizer at the bench's int16 transfer (the native packer), the same
 scans chunked (C = 2, flushed) and through AsyncIngest, renders the
 board, queries the map (K7's plain version), sorts with K9's plain
 version, writes and reads a checkpoint, runs the SLAM engine with GPS
 priors, a pose-graph optimisation, a session round trip, the gain through
-its wrapper and the CLI, and JAX is still absent from sys.modules.
+its wrapper and the CLI, the data readers (the native KITTI parser and
+filter chain, a generic sequence exported by ``make-synthetic`` and run by
+``sequence``, the packet slicer), one tick of the multi-session step and
+the ``entry()`` twin, and JAX is still absent from sys.modules.
 ``chip_smoke.py`` imports none of it either, and without a card it exits 2
 and prints no result."""
 
@@ -21,6 +24,16 @@ _SCRIPT = r"""
 import os
 import sys
 import tempfile
+
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "fast_limo_tpu"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
 import numpy as np
 import torch
 from fast_limo_tpu_torch.io import native, synthetic
@@ -87,6 +100,28 @@ assert float(costs[-1]) < 1e-6 and abs(float(g2.trans[2, 0]) - 2.0) < 1e-3
 K = gain.gain(torch.eye(12), torch.ones(12), torch.eye(23), 1e-3)
 assert K[0].shape == (23, 12) and gain.gain.launches == 0
 assert cli.main(["--device", "cpu", "--no-loop", "synthetic", "--scans", "2"]) is None
+from fast_limo_tpu_torch import entry
+from fast_limo_tpu_torch.io import generic, kitti, packets
+from fast_limo_tpu_torch.parallel import batched
+
+d = tempfile.mkdtemp()
+assert cli.main(["--device", "cpu", "make-synthetic", "--dir", os.path.join(d, "s"),
+                 "--scans", "3", "--points", "1024"]) is None
+tum = os.path.join(d, "s.tum")
+assert cli.main(["sequence", "--data", os.path.join(d, "s"), "--device", "cpu",
+                 "--out", tum]) is None
+assert np.loadtxt(tum).shape == (3, 8)
+bin_path = os.path.join(d, "scan.bin")
+np.random.default_rng(0).normal(size=(64, 4)).astype(np.float32).tofile(bin_path)
+xyz, _i, t = native.parse_kitti_bin(bin_path)
+assert native.preprocess(xyz, t, 128)[3] == 64 and kitti.KittiDrive.scan
+assert len(list(packets.PacketSlicer(4).packets(xyz, t, 0.0))) == 4
+_step, (_s, b1) = entry.entry(device="cpu")
+tiny = entry._tiny_cfg()
+fleet = batched.build_batched_scan_step(tiny, "cpu")
+_st, outs = fleet(batched.init_batched_state(tiny, 2, "cpu"), batched.stack_batches([b1, b1]),
+                  torch.tensor([True, False]))
+assert torch.isfinite(outs.pos).all() and generic.HESAI == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "fast_limo_tpu" or m.startswith("fast_limo_tpu."))
@@ -98,6 +133,7 @@ sys.exit(1 if bad else 0)
 def test_port_runs_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
+    env["OMP_NUM_THREADS"] = "1"     # small ops; the suite's workers share the cores
     res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=str(REPO), env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]

@@ -295,10 +295,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     for make in (lambda: Localizer(cfg), lambda: Localizer(cfg, split_body=True),
                  lambda: SLAM(cfg), lambda: posegraph.create(8, 8),
                  lambda: rl.relocalize(np.zeros((4, 3), np.float32), np.ones(4, bool), [None]),
-                 lambda: cli.main(["synthetic", "--scans", "2"])):
+                 lambda: cli.main(["synthetic", "--scans", "2"]),
+                 lambda: cli.main(["kitti", "--drive", "x"]),
+                 lambda: cli.main(["sequence", "--data", "x"]),
+                 lambda: cli.main(["make-synthetic", "--dir", "x"])):
         with pytest.raises(RuntimeError, match="CUDA device"):
             make()
     with pytest.raises(SystemExit):                    # the JAX option is gone
         cli.main(["--platform", "cpu", "synthetic"])
-    with pytest.raises(SystemExit):                    # not registered yet
-        cli.main(["--device", "cpu", "kitti", "--drive", "x"])

@@ -12,9 +12,18 @@ The map maintenance (insert, evict) is plain tensor work (gathers, one
 scatter) around one K9 sort in ``insert``; after the same inserts and
 evictions ``table``/``ptable`` equal the JAX package's bit for bit.  The queries end in kernels: ``knn``
 and the narrow ``radius_search`` branches in K2 (``ops/knn_rows``), the
-wide ``radius_search`` branch in K7's table entry (``ops/knn``).  Sharded maps
-(``num_shards``/``shard_index``/``owned`` in the JAX package) are not
-ported yet.
+wide ``radius_search`` branch in K7's table entry (``ops/knn``).
+
+A map sharded over D ranks (``num_shards``/``shard_index``/``owned``, as
+in the JAX package) hashes a block over the GLOBAL group count ``G·D``:
+the global group's high part names the owner rank, its low part the group
+in that rank's G-row table (``_shard_split``).  With probing retired,
+global group ``owner·G + local`` is the single-card group ``_hash(bc,
+G·D)``, so the shards' tables concatenated in rank order are the
+single-card table of capacity ``G·D`` after the same inserts, bit for bit.
+A shard stores only the blocks it owns (``insert`` ands ``valid`` with
+``owned``), and its queries mask the blocks it does not (``owned`` from
+``block_rows`` into ``cands_from_rows``).
 """
 
 from __future__ import annotations
@@ -173,6 +182,19 @@ def block_coords(vc):
     return vc >> 1
 
 
+def _shard_split(h_full, groups: int, num_shards: int, shard_index):
+    """Global group ids (over ``groups·num_shards``) → (owned by
+    ``shard_index``, the group in the owner's ``groups``-row table)."""
+    return h_full // groups == shard_index, h_full % groups
+
+
+def _groups(bc, groups: int, num_shards: int, shard_index):
+    """(owned or None, local group) of block coords on one shard."""
+    if num_shards > 1:
+        return _shard_split(_hash(bc, groups * num_shards), groups, num_shards, shard_index)
+    return None, _hash(bc, groups)
+
+
 def _seg_sum(flags, reset):
     """Inclusive segmented sum of ``flags`` restarting where ``reset``."""
     f = flags.to(torch.int64)
@@ -182,16 +204,21 @@ def _seg_sum(flags, reset):
     return pre - base
 
 
-def insert(m: VoxelHashMap, pts, valid, *, voxel_size: float) -> VoxelHashMap:
+def insert(m: VoxelHashMap, pts, valid, *, voxel_size: float, num_shards: int = 1,
+           shard_index=0) -> VoxelHashMap:
     """Insert a masked batch of world-frame points (Mapper::add): one sort,
-    one group-row gather, one entry-block scatter (see the JAX docstring)."""
+    one group-row gather, one entry-block scatter (see the JAX docstring).
+    With ``num_shards > 1`` ``m`` is shard ``shard_index``'s table and only
+    the points of the blocks it owns are inserted."""
     G, B = m.groups, m.bucket
     EW = _entry_width(B)
     N = pts.shape[0]
     dev = pts.device
     pts = pts.to(torch.float32)
     vc0 = voxel_coords(pts, voxel_size)
-    g0 = _hash(block_coords(vc0), G)
+    owned, g0 = _groups(block_coords(vc0), G, num_shards, shard_index)
+    if owned is not None:
+        valid = valid & owned
 
     # group-major sort on (group, packed voxel, index): int32 triples (K9);
     # the index operand makes the order that of the stable 2-key sort
@@ -275,9 +302,12 @@ def insert(m: VoxelHashMap, pts, valid, *, voxel_size: float) -> VoxelHashMap:
                         (m.num_points + total).to(torch.int32), m.last_time)
 
 
-def block_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: int = 8):
+def block_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: int = 8,
+               num_shards: int = 1, shard_index=0):
     """The kNN gather's table rows: ``(row_idx (N,V) int32 rows of
-    m.ptable, ncb (N,V,3) int32 block coords)``.
+    m.ptable, ncb (N,V,3) int32 block coords, owned (N,V) bool or None)``;
+    ``owned`` (with ``num_shards > 1``) marks the blocks shard
+    ``shard_index`` owns, whose rows ``row_idx`` names in its table.
 
     ``neighborhood`` 4, 8 and 27 all take the 8 blocks {b0, b0+1}³,
     b0 = floor((v−1)/2), which span the query's 27-voxel cube (coverage
@@ -290,19 +320,24 @@ def block_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: int
         ncb = block_coords(qc)[:, None, :] + _block_offsets(1, queries.device)[None]
     else:
         ncb = ((qc - 1) >> 1)[:, None, :] + _corners(queries.device)[None]
-    return _hash(ncb, m.groups).to(torch.int32), ncb.to(torch.int32)
+    owned, g = _groups(ncb, m.groups, num_shards, shard_index)
+    return g.to(torch.int32), ncb.to(torch.int32), owned
 
 
-def gather_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: int = 8):
+def gather_rows(m: VoxelHashMap, queries, *, voxel_size: float, neighborhood: int = 8,
+                num_shards: int = 1, shard_index=0):
     """The kNN gather: ``(rows (N,V,WP) f32, ncb (N,V,3) int32 block
-    coords)``, the rows of ``block_rows`` materialised."""
-    row_idx, ncb = block_rows(m, queries, voxel_size=voxel_size, neighborhood=neighborhood)
-    return m.ptable[row_idx.long()], ncb
+    coords, owned)``, the rows of ``block_rows`` materialised."""
+    row_idx, ncb, owned = block_rows(m, queries, voxel_size=voxel_size,
+                                     neighborhood=neighborhood, num_shards=num_shards,
+                                     shard_index=shard_index)
+    return m.ptable[row_idx.long()], ncb, owned
 
 
-def cands_from_rows(rows, ncb, bucket: int):
+def cands_from_rows(rows, ncb, owned, bucket: int):
     """Block-match + bucket extraction from planar rows →
-    (cand_pts (N,V·SUB,B,E,3), cand_valid (N,V·SUB,B,E))."""
+    (cand_pts (N,V·SUB,B,E,3), cand_valid (N,V·SUB,B,E)); ``owned``
+    (N,V) bool, or None, masks the blocks of other shards."""
     N, V, WP = rows.shape
     B = bucket
     sub = rows.reshape(N, V * SUB, _sub_width(B))
@@ -312,6 +347,8 @@ def cands_from_rows(rows, ncb, bucket: int):
     sel = ((cnt > 0) & (torch.floor(vx * 0.5) == ncf[..., 0:1])
            & (torch.floor(vy * 0.5) == ncf[..., 1:2])
            & (torch.floor(vz * 0.5) == ncf[..., 2:3]))
+    if owned is not None:
+        sel = sel & torch.repeat_interleave(owned, SUB, dim=1)[..., None]
     EB = E * B
     xs = sub[..., 4 * E:4 * E + EB].reshape(N, V * SUB, B, E)
     ys = sub[..., 4 * E + EB:4 * E + 2 * EB].reshape(N, V * SUB, B, E)
@@ -326,14 +363,23 @@ def gather_neighborhood(m: VoxelHashMap, queries, *, voxel_size: float,
                         neighborhood: int = 8):
     """Gather each query's block neighborhood and decode its buckets →
     (cand_pts (N,V·SUB,B,E,3), cand_valid (N,V·SUB,B,E))."""
-    rows, ncb = gather_rows(m, queries, voxel_size=voxel_size, neighborhood=neighborhood)
-    return cands_from_rows(rows, ncb, m.bucket)
+    return cands_from_rows(*gather_rows(m, queries, voxel_size=voxel_size,
+                                        neighborhood=neighborhood), m.bucket)
+
+
+def topk_from_candidates(cand_pts, cand_valid, queries, *, k: int):
+    """The k smallest squared distances among decoded candidates
+    (``cands_from_rows``), ascending: K7's dense entry on the flattened
+    (N, V·SUB·B·E) columns, ties to the lowest column as ``lax.top_k``."""
+    N = queries.shape[0]
+    return knn_op.masked_topk(cand_pts.reshape(N, -1, 3), cand_valid.reshape(N, -1),
+                              queries, k=k)
 
 
 def knn(m: VoxelHashMap, queries, *, voxel_size: float, k: int, neighborhood: int = 8):
     """Bounded kNN over the block neighborhood: K2 on the table rows of
     ``block_rows`` (the rows are not gathered)."""
-    row_idx, ncb = block_rows(m, queries, voxel_size=voxel_size, neighborhood=neighborhood)
+    row_idx, ncb, _ = block_rows(m, queries, voxel_size=voxel_size, neighborhood=neighborhood)
     return knn_rows.topk_from_table(m.ptable, row_idx, ncb, queries, E=E, B=m.bucket, k=k)
 
 

@@ -124,12 +124,23 @@ def init_state(cfg: Config, device="cuda") -> LIOState:
         pinned_grav=x.grav.clone())
 
 
-def build_scan_step(cfg: Config, device="cuda", split_body: bool = False):
+def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
+                    shard_axis: str = None, num_shards: int = 1, query_axis: str = None,
+                    num_query_shards: int = 1, comm=None):
     """The per-scan step for a static config, on ``device``.  With
     ``split_body`` the update runs the per-iteration loop around the gain
     kernel K8 every scan (``iekf.update_iterated``) instead of K6/K5.  With
     ``cfg.debug`` the output carries a ``DebugOutput`` (one more re-match
-    at the posterior and its host read); without it nothing of that runs."""
+    at the posterior and its host read); without it nothing of that runs.
+
+    With ``shard_axis`` the step is one rank's of a sharded step
+    (parallel/sharded.py; ``comm`` is the rank's handle): ``s.map`` is this
+    rank's shard of ``num_shards`` (the blocks it owns, ``G`` of the
+    ``G·num_shards`` global groups), the kNN merges over the axis, the
+    insert keeps the owned points, and ``num_points`` stays the replicated
+    global count (the psum of the shards' deltas).  ``query_axis``
+    additionally splits the matching work over ``num_query_shards`` ranks
+    (see models/measurement.py); everything else is replicated."""
     device = dispatch.resolve_device(device)
     if device.type == "cuda":
         # the voxel sort takes the whole scan; the insert sort at most that
@@ -201,7 +212,8 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False):
             plane_threshold=mp_cfg.PLANE_THRESHOLD,
             max_num_matches=mp_cfg.MAX_NUM_MATCHES,
             estimate_extrinsics=cfg.ikfom.estimate_extrinsics, x0=x_t2,
-            dynamic_gate=mp_cfg.DYNAMIC_GATE)
+            dynamic_gate=mp_cfg.DYNAMIC_GATE, shard_axis=shard_axis, num_shards=num_shards,
+            query_axis=query_axis, num_query_shards=num_query_shards, comm=comm)
         upd = iekf.update_iterated(
             x_t2, P_t2, h_model, R=cfg.ikfom.lidar_noise,
             D=cfg.ikfom.degeneracy_thresh, max_iters=cfg.ikfom.MAX_NUM_ITERS,
@@ -220,7 +232,13 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False):
             ins_pts, ins_valid = pc2match, pc2_valid
         w_scan = so3.quat_rotate(x_u.rot, ins_pts) + x_u.pos
         new_map = mapper.insert(s.map, w_scan, ins_valid & do_update,
-                                voxel_size=voxel_size)
+                                voxel_size=voxel_size, num_shards=num_shards,
+                                shard_index=comm.axis_index(shard_axis) if shard_axis else 0)
+        if shard_axis is not None:
+            # keep num_points a replicated GLOBAL count (psum of shard deltas)
+            delta = new_map.num_points - s.map.num_points
+            new_map = new_map._replace(num_points=s.map.num_points + comm.psum(
+                delta, shard_axis, "num_points_psum_bytes"))
         new_map = new_map._replace(last_time=scan_end.to(f32))
 
         bg_corr = s.bias_gyro_corr if cfg.calibrate_gyro else x_u.bg

@@ -1,5 +1,4 @@
-"""SE(3) pose-graph optimization (port of fast_limo_tpu/models/posegraph.py
-without its mesh-sharded edge reduction).
+"""SE(3) pose-graph optimization (port of fast_limo_tpu/models/posegraph.py).
 
 Fixed-capacity node and edge stores, per-edge residuals and Jacobians
 batched over a leading axis with forward-mode autodiff (``torch.func.jvp``), and a Gauss-Newton
@@ -20,6 +19,11 @@ taken.
 Robust kernels: ``optimize(robust_delta=δ)`` applies Huber IRLS to the edge
 set (weight × min(1, δ/‖r‖) re-evaluated every GN iteration);
 ``robust_delta_priors`` does the same for the position priors.
+
+Edge-sharded (``optimize_distributed``): each rank of a mesh axis holds a
+slice of the edge arrays (nodes and priors replicated), accumulates its
+edges' normal equations, and the dense H / b and the edge cost are
+psum-reduced over the axis before the replicated solve.
 """
 
 from __future__ import annotations
@@ -313,7 +317,8 @@ def _chain_solve(g, wJi, wJj, Ji, Jj, wJpa, wJpb, Jpa, Jpb, r, rp, active,
 
 def optimize(g: PoseGraph, *, iters: int = 10, damping: float = 1e-6,
              solver: str = "auto", cg_tol: float = 1e-6, cg_maxiter: int = 96,
-             robust_delta: float = 0.0, robust_delta_priors: float = 0.0):
+             robust_delta: float = 0.0, robust_delta_priors: float = 0.0,
+             edge_axis: str = None, comm=None):
     """Batched Gauss-Newton over all valid nodes/edges; node 0 held fixed.
     Returns ``(graph', costs (iters,))``.
 
@@ -329,13 +334,21 @@ def optimize(g: PoseGraph, *, iters: int = 10, damping: float = 1e-6,
     dense on a CUDA tensor (the chain solver would be tens of thousands of
     tiny launches and a host read per PCG iteration there), chain on a CPU
     tensor when the node capacity exceeds 128.
+
+    ``edge_axis`` (with ``comm``, a rank's handle of
+    parallel/collectives.py): ``g``'s edge arrays are this rank's slice;
+    the edges' H / b and cost are psum-reduced over the axis before the
+    replicated priors are added (adding them before would count them axis
+    size times).  Forces the dense solve.
     """
     K = g.quat.shape[0]
     dtype, dev = g.quat.dtype, g.quat.device
+    if edge_axis is not None and comm is None:
+        raise ValueError("an edge-sharded optimize needs its rank's comm")
     if solver == "auto":
-        use_chain = K > 128 and not g.quat.is_cuda
+        use_chain = K > 128 and not g.quat.is_cuda and edge_axis is None
     else:
-        use_chain = solver == "chain"
+        use_chain = solver == "chain" and edge_axis is None
 
     ei, ej, pidx = g.edge_i.long(), g.edge_j.long(), g.prior_idx.long()
     pb_idx = torch.clamp(pidx + 1, max=K - 1)
@@ -395,12 +408,17 @@ def optimize(g: PoseGraph, *, iters: int = 10, damping: float = 1e-6,
             H = torch.zeros((K, 6, K, 6), dtype=dtype, device=dev)
             b = torch.zeros((K, 6), dtype=dtype, device=dev)
             for rows, cols, wA, B in ((ei, ei, wJi, Ji), (ej, ej, wJj, Jj),
-                                      (ei, ej, wJi, Jj), (ej, ei, wJj, Ji),
-                                      (pidx, pidx, wJpa, Jpa), (pb_idx, pb_idx, wJpb, Jpb),
+                                      (ei, ej, wJi, Jj), (ej, ei, wJj, Ji)):
+                put(H, rows, cols, blocks(wA, B))
+            for idx, wJ, res in ((ei, wJi, r), (ej, wJj, r)):
+                b.index_add_(0, idx, -torch.einsum("eab,ea->eb", wJ, res))
+            if edge_axis is not None:   # reduce the sharded edge factors
+                H = comm.psum(H, edge_axis, "posegraph_psum_bytes")
+                b = comm.psum(b, edge_axis, "posegraph_psum_bytes")
+            for rows, cols, wA, B in ((pidx, pidx, wJpa, Jpa), (pb_idx, pb_idx, wJpb, Jpb),
                                       (pidx, pb_idx, wJpa, Jpb), (pb_idx, pidx, wJpb, Jpa)):
                 put(H, rows, cols, blocks(wA, B))
-            for idx, wJ, res in ((ei, wJi, r), (ej, wJj, r), (pidx, wJpa, rp),
-                                 (pb_idx, wJpb, rp)):
+            for idx, wJ, res in ((pidx, wJpa, rp), (pb_idx, wJpb, rp)):
                 b.index_add_(0, idx, -torch.einsum("eab,ea->eb", wJ, res))
             # gauge: clamp node 0; deactivate invalid nodes — AFTER the prior
             # terms, so a prior on the gauge or an invalid node cannot move it
@@ -413,6 +431,33 @@ def optimize(g: PoseGraph, *, iters: int = 10, damping: float = 1e-6,
         dq, dt = se3.exp(delta)
         trans = trans + so3.quat_rotate(quat, dt)   # T ← T·exp(δ)
         quat = so3.quat_normalize(so3.quat_mul(quat, dq))
-        costs.append(torch.sum(w * torch.sum(r * r, dim=-1))
-                     + torch.sum(wp * torch.sum(rp * rp, dim=-1)))
+        cost = torch.sum(w * torch.sum(r * r, dim=-1))
+        if edge_axis is not None:
+            cost = comm.psum(cost, edge_axis, "posegraph_psum_bytes")
+        costs.append(cost + torch.sum(wp * torch.sum(rp * rp, dim=-1)))
     return g._replace(quat=quat, trans=trans), torch.stack(costs)
+
+
+def edge_slice(g: PoseGraph, index: int, n: int) -> PoseGraph:
+    """Rank ``index``'s contiguous 1/n of the edge arrays (views; nodes
+    and priors whole)."""
+    E = g.edge_i.shape[0]
+    if E % n:
+        raise ValueError(f"edge capacity {E} not divisible by {n} ranks")
+    lo, hi = index * (E // n), (index + 1) * (E // n)
+    return g._replace(**{f: getattr(g, f)[lo:hi] for f in
+                         ("edge_i", "edge_j", "edge_quat", "edge_trans", "edge_weight")})
+
+
+def optimize_distributed(g: PoseGraph, mesh, *, iters: int = 10, axis: str = "map"):
+    """Pose-graph GN with the edge factors sharded over ``axis`` of
+    ``mesh`` (parallel/sharded.py): every rank optimises with its edge
+    slice (``edge_slice``, the capacity must divide by the axis size) and
+    the normal equations psum over the axis.  Returns ``(graph', costs)``,
+    replicated (rank 0's)."""
+    n = mesh.axes[axis]
+    if g.edge_i.shape[0] % n:
+        raise ValueError(f"edge capacity {g.edge_i.shape[0]} not divisible by {n} ranks")
+    return mesh.run(lambda comm: optimize(
+        edge_slice(g, comm.axis_index(axis), n), iters=iters, edge_axis=axis,
+        comm=comm))[0]

@@ -69,7 +69,7 @@ def masked_topk_from_table_reference(ptable, row_idx, ncb, queries, *, E: int, B
     outs = []
     for i0 in range(0, N, chunk):
         rows = ptable[row_idx[i0:i0 + chunk].long()]
-        cand_pts, cand_valid = mapper.cands_from_rows(rows, ncb[i0:i0 + chunk], B)
+        cand_pts, cand_valid = mapper.cands_from_rows(rows, ncb[i0:i0 + chunk], None, B)
         n = rows.shape[0]
         outs.append(masked_topk_reference(cand_pts.reshape(n, -1, 3), cand_valid.reshape(n, -1),
                                           queries[i0:i0 + chunk], k=k))

@@ -59,7 +59,7 @@ def candidate_d2(rows, nc, queries, *, E: int, B: int):
     """Masked squared distances (N, V·B·E) and candidate coords (N,V·B·E,3)."""
     from fast_limo_tpu_torch.models import mapper as mp
 
-    cand_pts, cand_valid = mp.cands_from_rows(rows, nc, B)
+    cand_pts, cand_valid = mp.cands_from_rows(rows, nc, None, B)
     N = queries.shape[0]
     pts = cand_pts.reshape(N, -1, 3)
     return knn.masked_d2(pts, cand_valid.reshape(N, -1), queries), pts

@@ -7,6 +7,9 @@ package's field names.  The map layout is identical
 (``mapper.layout_version``), so the same arrays mean the same map: with
 this, both packages compute the same step from the same state.  A caller
 holding a JAX state builds the dict with ``np.asarray`` on its own side.
+A JAX sharded state is no different: its global arrays (``np.asarray``
+gathers the shards) are the port's global sharded state leaf for leaf, the
+shards' table rows in rank order (parallel/sharded.py).
 
 The SLAM layer's state crosses the same way: a ``PoseGraph`` as the dict of
 its fields (``posegraph_to_numpy`` on this side, ``{f: np.asarray(getattr(g,

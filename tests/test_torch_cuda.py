@@ -158,8 +158,8 @@ def test_k1_deskew(dev, K, n_valid):
 
 def test_k2_k3_k4_on_a_scan(scan):
     cfg, h, _ = scan
-    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size)
-    rows, _ = mapper.gather_rows(h.m, h.glob0, voxel_size=h.voxel_size)
+    row_idx, ncb, _ = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size)
+    rows, _, _ = mapper.gather_rows(h.m, h.glob0, voxel_size=h.voxel_size)
     for k in (5, 12):
         a = _once(knn_rows.topk_from_table, lambda: knn_rows.topk_from_table(
             h.m.ptable, row_idx, ncb, h.glob0, E=mapper.E, B=h.m.bucket, k=k))
@@ -195,8 +195,8 @@ def test_k2_table_entry_and_active_flags_on_a_scan(scan):
     cfg, h, loc = scan
     on = torch.ones((), dtype=torch.bool, device=h.pc.device)
     off = torch.zeros((), dtype=torch.bool, device=h.pc.device)
-    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size)
-    rows, _ = mapper.gather_rows(h.m, h.glob0, voxel_size=h.voxel_size)
+    row_idx, ncb, _ = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size)
+    rows, _, _ = mapper.gather_rows(h.m, h.glob0, voxel_size=h.voxel_size)
     kw = dict(E=mapper.E, B=h.m.bucket, k=5)
     plain = knn_rows.topk_from_rows_reference(rows, ncb, h.glob0, **kw)
     want = None
@@ -485,8 +485,8 @@ def test_k2_bit_equal_at_k(scan, V, k):
     nbrs, invalid tail included: the schedule the wrapper picks and every
     other schedule that takes k."""
     _, h, _ = scan
-    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size,
-                                     neighborhood=8 if V == 8 else -27)
+    row_idx, ncb, _ = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size,
+                                        neighborhood=8 if V == 8 else -27)
     kw = dict(E=mapper.E, B=h.m.bucket, k=k)
     a = _once(knn_rows.topk_from_table, lambda: knn_rows.topk_from_table(
         h.m.ptable, row_idx, ncb, h.glob0, **kw))
@@ -504,8 +504,8 @@ def test_k2_overflowing_warp_list_takes_the_exact_path(scan, monkeypatch, V):
     the warp's exact path over all columns, with the same bits."""
     monkeypatch.setattr(knn_rows, "warp_cap", lambda V, B: 8)
     _, h, _ = scan
-    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size,
-                                     neighborhood=8 if V == 8 else -27)
+    row_idx, ncb, _ = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size,
+                                        neighborhood=8 if V == 8 else -27)
     for k in (5, 32):
         kw = dict(E=mapper.E, B=h.m.bucket, k=k)
         b = knn_rows.topk_from_table_reference(h.m.ptable, row_idx, ncb, h.glob0, **kw)
@@ -522,10 +522,10 @@ def test_k2_nonfinite_valid_column(scan, value):
     plain stable sort (NaN after +inf, +inf among the invalid columns by
     column)."""
     _, h, _ = scan
-    row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size)
+    row_idx, ncb, _ = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size)
     ptab = h.m.ptable.clone()
     rows = ptab[row_idx.long()]
-    cand, cval = mapper.cands_from_rows(rows, ncb, h.m.bucket)
+    cand, cval = mapper.cands_from_rows(rows, ncb, None, h.m.bucket)
     N = row_idx.shape[0]
     cval = cval.reshape(N, -1)
     hit = 0
@@ -551,7 +551,7 @@ def test_k2_select_entry_branches(scan):
     idx rows, K2 on every query); one launch a call."""
     _, h, _ = scan
     glob = h.glob0
-    row_idx, ncb = h._rows(glob)
+    row_idx, ncb = h._rows(glob)[:2]
     kw = dict(E=mapper.E, B=h.m.bucket, k=h.k)
     stale = h.pc_valid & (torch.cumsum(h.pc_valid.to(torch.int32), 0) <= h.budget // 2)
     idx = torch.sort(stale.to(torch.int8), descending=True, stable=True)[1][:h.budget]
@@ -573,9 +573,9 @@ def test_k2_select_entry_branches(scan):
 def test_k2_at_k64_on_a_scan(scan):
     _, h, _ = scan
     for nbh in (8, -27):
-        row_idx, ncb = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size,
-                                         neighborhood=nbh)
-        rows, _ = mapper.gather_rows(h.m, h.glob0, voxel_size=h.voxel_size, neighborhood=nbh)
+        row_idx, ncb, _ = mapper.block_rows(h.m, h.glob0, voxel_size=h.voxel_size,
+                                            neighborhood=nbh)
+        rows, _, _ = mapper.gather_rows(h.m, h.glob0, voxel_size=h.voxel_size, neighborhood=nbh)
         for k in (17, 64, 128):
             a = _once(knn_rows.topk_from_table, lambda: knn_rows.topk_from_table(
                 h.m.ptable, row_idx, ncb, h.glob0, E=mapper.E, B=h.m.bucket, k=k))

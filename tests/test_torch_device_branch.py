@@ -208,11 +208,11 @@ def test_rematch_branch_chosen_on_the_device(scene, shift, budget, branch):
 def test_k2_table_entry_equals_gathered_rows(scene, nbh, k):
     tm, _, x0, pc, _ = scene
     q = so3.quat_rotate(_ts(x0).rot, torch.tensor(pc)) + _ts(x0).pos
-    row_idx, ncb = mp.block_rows(tm, q, voxel_size=VOXEL, neighborhood=nbh)
+    row_idx, ncb, _ = mp.block_rows(tm, q, voxel_size=VOXEL, neighborhood=nbh)
     assert row_idx.dtype == torch.int32 and row_idx.shape == ncb.shape[:2]
     got = knn_rows.topk_from_table(tm.ptable, row_idx, ncb, q, E=mp.E, B=tm.bucket, k=k,
                                    active=torch.tensor(True))
-    rows, ncb2 = mp.gather_rows(tm, q, voxel_size=VOXEL, neighborhood=nbh)
+    rows, ncb2, _ = mp.gather_rows(tm, q, voxel_size=VOXEL, neighborhood=nbh)
     want = knn_rows.topk_from_rows_reference(rows, ncb2, q, E=mp.E, B=tm.bucket, k=k)
     assert torch.equal(ncb, ncb2)
     for g, w in zip(got, want):

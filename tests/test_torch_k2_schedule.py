@@ -271,7 +271,8 @@ def small_map():
 
 
 def _rows(tm, q, V):
-    return mp.block_rows(tm, torch.tensor(q), voxel_size=VOX, neighborhood=8 if V == 8 else -27)
+    return mp.block_rows(tm, torch.tensor(q), voxel_size=VOX,
+                         neighborhood=8 if V == 8 else -27)[:2]
 
 
 def _held(got, want):

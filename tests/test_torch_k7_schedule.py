@@ -281,7 +281,7 @@ def test_table_entry_plain_is_the_composition(small_map, factor, k):
     got = knn.masked_topk_from_table(tm.ptable, row_idx, ncb, q, E=mp.E, B=tm.bucket, k=k)
     assert knn.masked_topk_from_table.launches == n0           # CPU: the plain version
     rows = tm.ptable[row_idx.long()]
-    cand, cvalid = mp.cands_from_rows(rows, ncb, tm.bucket)
+    cand, cvalid = mp.cands_from_rows(rows, ncb, None, tm.bucket)
     N = len(q)
     want = knn.masked_topk_reference(cand.reshape(N, -1, 3), cvalid.reshape(N, -1), q, k=k)
     for g, w in zip(got, want):
@@ -337,7 +337,7 @@ def test_wide_radius_search_matches_jax(small_map, factor, k):
     q = torch.tensor(qn)
     row_idx, ncb = _wide_rows(tm, q, r)
     rows = tm.ptable[row_idx.long()]
-    cand, cvalid = mp.cands_from_rows(rows, ncb, tm.bucket)
+    cand, cvalid = mp.cands_from_rows(rows, ncb, None, tm.bucket)
     jrows = jm.ptable[np.asarray(row_idx.long())]
     jcand, jvalid = jmp.cands_from_rows(jrows, jnp.asarray(ncb.numpy()), None, jm.bucket)
     np.testing.assert_array_equal(cand.numpy(), np.asarray(jcand))

@@ -87,7 +87,7 @@ def test_map_views_match_jax(maps, view):
 def test_gather_rows_neighborhoods_match_jax(maps, nbh):
     tm, jm = maps
     q = _queries()
-    rows, ncb = mp.gather_rows(tm, torch.tensor(q), voxel_size=VOX, neighborhood=nbh)
+    rows, ncb, _ = mp.gather_rows(tm, torch.tensor(q), voxel_size=VOX, neighborhood=nbh)
     jrows, jncb, _ = jmp.gather_rows(jm, jnp.asarray(q), voxel_size=VOX, neighborhood=nbh)
     assert rows.shape[1] == (27 if nbh == -27 else 8)
     np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))

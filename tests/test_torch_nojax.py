@@ -7,8 +7,10 @@ version, writes and reads a checkpoint, runs the SLAM engine with GPS
 priors, a pose-graph optimisation, a session round trip, the gain through
 its wrapper and the CLI, the data readers (the native KITTI parser and
 filter chain, a generic sequence exported by ``make-synthetic`` and run by
-``sequence``, the packet slicer), one tick of the multi-session step and
-the ``entry()`` twin, and JAX is still absent from sys.modules.
+``sequence``, the packet slicer), one tick of the multi-session step,
+the ``entry()`` twin, the multi-device layer (a 2 × 2 in-process sharded
+step, its checkpoint round trip, an edge-sharded pose graph; the
+process worker imported), and JAX is still absent from sys.modules.
 ``chip_smoke.py`` imports none of it either, and without a card it exits 2
 and prints no result."""
 
@@ -122,6 +124,23 @@ fleet = batched.build_batched_scan_step(tiny, "cpu")
 _st, outs = fleet(batched.init_batched_state(tiny, 2, "cpu"), batched.stack_batches([b1, b1]),
                   torch.tensor([True, False]))
 assert torch.isfinite(outs.pos).all() and generic.HESAI == 2
+from fast_limo_tpu_torch.models import posegraph
+from fast_limo_tpu_torch.parallel import _dist_worker, collectives, distributed, sharded
+mesh = sharded.make_mesh_2d(2, 2)
+cfg2 = entry._tiny_cfg(n_pts=128, map_cap=256, n_shards=2)
+sstep, sstate = sharded.build_sharded_scan_step(cfg2, mesh, "cpu")
+sstate, sout = sstep(sstate, entry._example_batch(cfg2, device="cpu"))
+assert torch.isfinite(sout.pos).all() and mesh.received(0)["knn_allgather_bytes"] > 0
+with tempfile.TemporaryDirectory() as td:
+    distributed.save_checkpoint(os.path.join(td, "s.npz"), sstate, mesh)
+    back = distributed.load_checkpoint(os.path.join(td, "s.npz"),
+                                       sharded.init_global_state(cfg2, 2, "cpu"), mesh)
+assert torch.equal(back.map.table, sstate.map.table)
+pgraph = posegraph.create(4, 4, device="cpu")
+for k in range(3):
+    pgraph = posegraph.add_node(pgraph, torch.tensor([1.0, 0, 0, 0]), torch.tensor([k, 0.0, 0]))
+pgraph, pcost = posegraph.optimize_distributed(pgraph, sharded.make_mesh(2), iters=2)
+assert torch.isfinite(pcost).all() and callable(_dist_worker.main)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "fast_limo_tpu" or m.startswith("fast_limo_tpu."))

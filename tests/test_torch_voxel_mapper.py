@@ -107,7 +107,7 @@ def _filled_map(rng):
 def test_gather_rows_equal(rng):
     tm, jm = _filled_map(rng)
     q = np.float32(rng.uniform(-7, 7, (257, 3)))
-    rows, ncb = mp.gather_rows(tm, torch.tensor(q), voxel_size=VOXEL)
+    rows, ncb, _ = mp.gather_rows(tm, torch.tensor(q), voxel_size=VOXEL)
     jrows, jncb, owned = jmp.gather_rows(jm, jnp.asarray(q), voxel_size=VOXEL)
     assert owned is None
     np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
@@ -136,7 +136,7 @@ def test_plain_k2_matches_jax(rng, k):
     tm, jm = _filled_map(rng)
     q = np.float32(rng.uniform(-7, 7, (200, 3)))
     q[:20] = q[:20] + 30.0                     # queries with few/no candidates
-    row_idx, ncb = mp.block_rows(tm, torch.tensor(q), voxel_size=VOXEL)
+    row_idx, ncb, _ = mp.block_rows(tm, torch.tensor(q), voxel_size=VOXEL)
     nb, sq, vl = (a.numpy() for a in knn_rows.topk_from_table(
         tm.ptable, row_idx, ncb, torch.tensor(q), E=mp.E, B=3, k=k))
     jrows, jncb, _ = jmp.gather_rows(jm, jnp.asarray(q), voxel_size=VOXEL)

@@ -132,7 +132,7 @@ def free_port() -> int:
 
 
 def run_workers(n_processes: int, out: str, scans: int = 2, checkpoint: str = None,
-                timeout: float = 600.0, extra=()) -> list:
+                timeout: float = 600.0) -> list:
     """Run parallel/_dist_worker.py in ``n_processes`` CPU processes over
     torch.distributed (gloo) and wait for them (at most ``timeout``
     seconds, then they are killed); returns their logs and raises on a
@@ -147,7 +147,7 @@ def run_workers(n_processes: int, out: str, scans: int = 2, checkpoint: str = No
     env = dict(os.environ)
     env["CUDA_VISIBLE_DEVICES"] = ""      # CPU processes: gloo on CPU tensors
     cmd = [sys.executable, worker, "--num-processes", str(n_processes), "--port", str(port),
-           "--scans", str(scans), "--out", out, *extra]
+           "--scans", str(scans), "--out", out]
     if checkpoint:
         cmd += ["--checkpoint", checkpoint]
     procs = [subprocess.Popen(cmd + ["--process-id", str(pid)], cwd=root, env=env,
@@ -178,7 +178,7 @@ def _dryrun_multiprocess():
 
     with tempfile.TemporaryDirectory() as td:
         out = os.path.join(td, "dist.npz")
-        run_workers(2, out, scans=2, extra=("--skip-2d",))
+        run_workers(2, out, scans=2)
         d = np.load(out)
         if not bool(d["roundtrip_ok"]):
             raise RuntimeError("the two-process checkpoint round trip differs")

@@ -72,6 +72,8 @@ class HModel:
                  comm=None):
         if (shard_axis or query_axis) and comm is None:
             raise ValueError("a sharded measurement model needs its rank's comm")
+        if query_axis and not shard_axis:
+            raise ValueError("the query axis is split beside a map axis (a 2-D mesh)")
         self.comm = comm
         self.shard_axis, self.num_shards = shard_axis, int(num_shards)
         self.query_axis = query_axis
@@ -118,7 +120,8 @@ class HModel:
     # ------------------------------------------------------------ pieces
     @property
     def sharded(self) -> bool:
-        return self.comm is not None
+        """The map is sharded: every top-k goes through ``_topk_merged``."""
+        return self.shard_axis is not None
 
     def _rows(self, glob):
         """Each query's block rows of the map: (row_idx (N,V), ncb (N,V,3),
@@ -140,9 +143,7 @@ class HModel:
         row_idx, ncb, owned = rows
         cand_pts, cand_valid = mp.cands_from_rows(self.m.ptable[row_idx.long()], ncb, owned,
                                                   self.m.bucket)
-        nbrs, sq, vld = mp.topk_from_candidates(cand_pts, cand_valid, glob, k=kk)
-        if self.shard_axis is None:
-            return nbrs, sq, vld
+        nbrs, sq, _ = mp.topk_from_candidates(cand_pts, cand_valid, glob, k=kk)
         return merge_topk(self.comm.all_gather(nbrs, self.shard_axis, "knn_allgather_bytes"),
                           self.comm.all_gather(sq, self.shard_axis, "knn_allgather_bytes"), kk)
 

@@ -13,9 +13,8 @@ Run by file path, one process a rank:
 Rank 0 writes ``--out`` (the per-scan positions, the final map point
 count, the continuation positions from the live and the restored state,
 the round-trip flag, the received bytes) and, with ``--checkpoint``,
-leaves the checkpoint it saved after the scans there.  With four or more
-processes (an even count) it also runs one step on a 2-D mesh.  Every
-process exits 0 on success.
+leaves the checkpoint it saved after the scans there.  Every process
+exits 0 on success.
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True)
     ap.add_argument("--checkpoint", default=None,
                     help="keep the checkpoint saved after the scans at this path")
-    ap.add_argument("--skip-2d", action="store_true")
     args = ap.parse_args(argv)
 
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -52,7 +50,7 @@ def main(argv=None) -> int:
     n = args.num_processes
     dist.initialize(f"localhost:{args.port}", n, args.process_id)
     try:
-        # ---- 1-D ('map',) mesh over the processes: scans + checkpoint ----
+        # ('map',) mesh over the processes: scans + checkpoint
         mesh = sharded.make_mesh(n, backend="gloo")
         cfg = entry._tiny_cfg(n_pts=512, map_cap=1024, n_shards=n)
         step, state = sharded.build_sharded_scan_step(cfg, mesh, device="cpu")
@@ -75,18 +73,9 @@ def main(argv=None) -> int:
                             and torch.equal(s_live.map.table, s_rest.map.table)
                             and np_live == int(s_rest.map.num_points))
 
-        # ---- 2-D ('map','data') mesh: one step ----
-        ok_2d = True
-        if not args.skip_2d and n >= 4 and n % 2 == 0:
-            mesh2 = sharded.make_mesh_2d(n // 2, 2, backend="gloo")
-            cfg2 = entry._tiny_cfg(n_pts=512, map_cap=1024, n_shards=n // 2)
-            step2, state2 = sharded.build_sharded_scan_step(cfg2, mesh2, device="cpu")
-            _, out2 = step2(state2, entry._example_batch(cfg2, seed=0, device="cpu"))
-            ok_2d = bool(torch.isfinite(out2.pos).all())
-
         if args.process_id == 0:
             np.savez(args.out, positions=np.stack(positions), final_pos=out_live.pos.numpy(),
-                     num_points=np_live, roundtrip_ok=roundtrip_ok, ok_2d=ok_2d,
+                     num_points=np_live, roundtrip_ok=roundtrip_ok,
                      n_processes=n, received=json.dumps(received))
         dist.barrier(mesh)
         if args.checkpoint is None and args.process_id == 0 and os.path.exists(ckpt_path):
@@ -94,8 +83,8 @@ def main(argv=None) -> int:
     finally:
         torch.distributed.destroy_process_group()
     print(f"[dist-worker p{args.process_id}] ok: {n} processes (gloo), "
-          f"roundtrip_ok={roundtrip_ok}, ok_2d={ok_2d}", flush=True)
-    return 0 if (roundtrip_ok and ok_2d) else 1
+          f"roundtrip_ok={roundtrip_ok}", flush=True)
+    return 0 if roundtrip_ok else 1
 
 
 if __name__ == "__main__":

@@ -32,9 +32,9 @@ Two backends:
   that raises breaks the barrier: every rank stops and ``run`` re-raises
   the first error in the caller.
 * ``DistComm`` — one rank a process over ``torch.distributed`` (gloo, CPU
-  tensors; see parallel/distributed.py).  ``psum`` and ``pmax`` are an
-  all-gather followed by the same rank-order reduction, so both backends
-  give the same bits.
+  tensors; see parallel/distributed.py), on a mesh of one axis.  ``psum``
+  and ``pmax`` are an all-gather followed by the same rank-order
+  reduction, so both backends give the same bits.
 
 Each handle counts the bytes its rank receives, by tag (``received``),
 with the ring accounting of ``sharded.comm_volume`` (the JAX package's
@@ -242,35 +242,24 @@ class InProcessGroup:
 
 class DistComm(Comm):
     """This process's rank over ``torch.distributed`` (initialised by the
-    caller, world size = the mesh's size).  Creates one process group a
-    row of every axis (``new_group`` is collective: every process builds
-    the same mesh in the same order)."""
+    caller, world size = the mesh's size) on a mesh of one axis: the
+    collectives run over the world group."""
 
     def __init__(self, axes: Dict[str, int]):
         import torch.distributed as dist
 
+        if len(axes) != 1:
+            raise ValueError(f"a process-spanning mesh has one axis, got {list(axes)}")
         super().__init__(axes, dist.get_rank())
         if dist.get_world_size() != self.size:
             raise ValueError(f"a mesh of {self.size} ranks over a world of "
                              f"{dist.get_world_size()} processes")
-        self._groups = {}
-        for axis in self.axes:
-            seen = set()
-            for r in range(self.size):
-                members = tuple(self.group(axis, r))
-                if members in seen:
-                    continue
-                seen.add(members)
-                pg = dist.new_group(list(members))
-                if self.rank in members:
-                    self._groups[axis] = (pg, list(members))
 
     def _exchange(self, kind, x, axis):
         import torch.distributed as dist
 
-        pg, members = self._groups[axis]
-        xs = [torch.empty_like(x) for _ in members]
-        dist.all_gather(xs, x.contiguous(), group=pg)
+        xs = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(xs, x.contiguous())
         return _reduce(kind, xs)
 
     def barrier(self) -> None:

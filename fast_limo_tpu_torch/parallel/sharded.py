@@ -18,7 +18,7 @@ A ``Mesh`` names its axes and its backend:
   table of capacity ``G·D`` after the same inserts, so checkpoints and
   the parameter carry-over need no reshuffle.
 * ``"gloo"`` — one rank a process over ``torch.distributed`` (initialised
-  with parallel/distributed.initialize; CPU tensors).  Each process holds
+  with parallel/distributed.initialize; CPU tensors), 1-D meshes only.  Each process holds
   only its own shard: a state of ``cfg.tpu.map_capacity`` entries;
   distributed.fetch / save_checkpoint / load_checkpoint convert to and
   from the global layout.

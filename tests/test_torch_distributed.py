@@ -14,10 +14,11 @@ rendezvous cannot hold up the run."""
 import json
 
 import numpy as np
+import pytest
 import torch
 
 from fast_limo_tpu_torch import entry
-from fast_limo_tpu_torch.parallel import distributed, sharded
+from fast_limo_tpu_torch.parallel import collectives, distributed, sharded
 
 from test_torch_sequence import one_thread  # noqa: F401 (fixture)
 
@@ -56,3 +57,10 @@ def test_two_processes_match_the_in_process_backend(tmp_path, one_thread):  # no
     s2, o2 = step(restored, entry._example_batch(cfg, seed=999, device="cpu"))
     np.testing.assert_array_equal(o2.pos.numpy(), w["final_pos"])
     assert int(s2.map.num_points) == int(w["num_points"])
+
+
+def test_a_process_spanning_mesh_has_one_axis():
+    """Over torch.distributed the mesh is one 'map' axis of one rank a
+    process; a 2-D mesh runs in-process only."""
+    with pytest.raises(ValueError, match="one axis"):
+        collectives.DistComm({"map": 2, "data": 2})

@@ -16,6 +16,7 @@ import torch
 from fast_limo_tpu.models import posegraph as jpg
 from fast_limo_tpu.parallel import sharded as jsh
 from fast_limo_tpu_torch.models import posegraph as pg
+from fast_limo_tpu_torch.ops import so3
 from fast_limo_tpu_torch.parallel import sharded
 from fast_limo_tpu_torch.utils import interop
 
@@ -68,3 +69,73 @@ def test_edge_slices_cover_the_edges():
     assert all(torch.equal(p.trans, g.trans) for p in parts)
     with pytest.raises(ValueError, match="not divisible"):
         pg.optimize_distributed(g, sharded.make_mesh(3), iters=1)
+
+
+def _ring_graph(noise=1.0, n=61, loops=7, dtype=torch.float32):
+    """A loop of ``n`` poses on a 10 m circle: drifted odometry edges
+    (noise × (2 cm, 0.2°)) and ``loops`` closures from the last poses to
+    the first; nodes start at the dead-reckoned odometry.  Edge capacity
+    n + loops (68 at the defaults, divisible by 4)."""
+    rng = np.random.default_rng(7)
+    th = 2 * np.pi * np.arange(n) / n
+    true = [(np.array([np.cos(a / 2), 0, 0, np.sin(a / 2)]),
+             np.array([10 * np.cos(a), 10 * np.sin(a), 0.1 * np.sin(3 * a)])) for a in th]
+
+    def rel(a, b):
+        qa, ta = (torch.tensor(v, dtype=torch.float64) for v in a)
+        qb, tb = (torch.tensor(v, dtype=torch.float64) for v in b)
+        qi = so3.quat_conj(qa)
+        q = so3.quat_mul(qi, qb)
+        t = so3.quat_rotate(qi, tb - ta)
+        q = so3.quat_mul(q, so3.exp_quat(torch.tensor(rng.normal(0, 0.0035 * noise, 3))))
+        return q, t + torch.tensor(rng.normal(0, 0.02 * noise, 3))
+
+    g = pg.create(n, n + loops, dtype=dtype, device="cpu")
+    q, t = (torch.tensor(v, dtype=torch.float64) for v in true[0])
+    g = pg.add_node(g, q, t)
+    for k in range(1, n):
+        qr, tr = rel(true[k - 1], true[k])
+        t, q = t + so3.quat_rotate(q, tr), so3.quat_normalize(so3.quat_mul(q, qr))
+        g = pg.add_node(g, q, t)
+        g = pg.add_edge(g, k - 1, k, qr, tr)
+    for i in range(loops):
+        qr, tr = rel(true[n - 1 - i], true[i])
+        g = pg.add_edge(g, n - 1 - i, i, qr, tr)
+    return g
+
+
+def cost_errors(noise: float = 1.0, iters: int = 8) -> dict:
+    """Float32 costs of the ring graph on one rank and on four, each
+    against the float64 one-rank costs (max relative error over the
+    iterations), and the float64 four-rank costs against the same."""
+    def rtol(a, b):
+        return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+    g32 = _ring_graph(noise)
+    g64 = g32._replace(**{f: getattr(g32, f).double() for f in g32._fields
+                          if getattr(g32, f).is_floating_point()})
+    c64 = pg.optimize(g64, iters=iters)[1]
+    return {"one_rank": rtol(pg.optimize(g32, iters=iters)[1], c64),
+            "four_ranks": rtol(pg.optimize_distributed(g32, sharded.make_mesh(4),
+                                                       iters=iters)[1], c64),
+            "float64_four_ranks": rtol(pg.optimize_distributed(g64, sharded.make_mesh(4),
+                                                               iters=iters)[1], c64)}
+
+
+@pytest.mark.parametrize("noise", [1.0, 0.1], ids=["drifted", "near_floor"])
+def test_float32_cost_error_of_four_ranks_stays_near_one_ranks(noise):
+    """The witness behind phase 11 (c)'s float32 bound in chip_smoke.py:
+    split over four ranks, the float32 costs sit off the float64 ones by
+    about as much as one rank's do (the bound is max(1e-4, 2 × one
+    rank's)); in float64 the two agree to the 1e-4 of tests/test_gps.py.
+    At a tenth of the noise the converged cost sits near its float32
+    floor and one rank's own error passes 1e-4, as on the soak's graph."""
+    e = cost_errors(noise)
+    print(e)
+    assert e["four_ranks"] <= max(1e-4, 2 * e["one_rank"])
+    assert e["float64_four_ranks"] <= 1e-4
+
+
+if __name__ == "__main__":
+    for noise in (1.0, 0.1):
+        print(f"noise x {noise}: {cost_errors(noise)}")

@@ -442,3 +442,14 @@ class TestInProcessBackend:
 
         with pytest.raises(threading.BrokenBarrierError):
             group.run(body)
+
+    def test_the_query_axis_needs_a_map_axis(self):
+        """Every mesh of parallel/sharded.py that splits the queries also
+        shards the map; a measurement model with only a query axis is
+        refused."""
+        comm = collectives.InProcessGroup({"data": 2}).comms[0]
+        with pytest.raises(ValueError, match="beside a map axis"):
+            measurement.HModel(None, None, None, voxel_size=1.0, k=5, max_dist_plane=1.0,
+                               plane_threshold=0.1, max_num_matches=10,
+                               estimate_extrinsics=False, x0=None, query_axis="data",
+                               num_query_shards=2, comm=comm)

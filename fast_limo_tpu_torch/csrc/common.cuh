@@ -3,7 +3,8 @@
 // Small-manifold math (quaternions, SO3/S2 charts, MTK semantics) as
 // scalar device functions, transcribed from fast_limo_tpu/ops/so3.py,
 // ops/s2.py and ops/update_body.py, plus block-parallel products,
-// deterministic cluster reductions and the launch of one thread-block cluster.
+// deterministic cluster reductions, the launch of one thread-block cluster
+// and the cooperative launch of one block a streaming multiprocessor.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false.
 // No fast-math: voxel/band keys use floorf(g / h) with IEEE division and
@@ -332,6 +333,41 @@ struct FlClusterLaunch {
     cfg.numAttrs = 1;
   }
 };
+
+// The cooperative launch of a grid of `blocks` blocks through
+// cudaLaunchKernelEx, so that the kernel may meet at cg::this_grid().sync().
+// Used in place: cfg points at attr.
+struct FlGridLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  FlGridLaunch(int blocks, int threads, cudaStream_t stream) : cfg(), attr() {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// One block a streaming multiprocessor, if the occupancy calculator says
+// that every such block can be resident at once (a grid barrier needs all
+// of them); else the error.  Nothing falls back.
+template <typename Kernel>
+inline cudaError_t fl_grid_blocks(Kernel kernel, int threads, size_t smem, int* blocks) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e == cudaSuccess && (per_sm < 1 || sms < 1)) e = cudaErrorCooperativeLaunchTooLarge;
+  *blocks = e == cudaSuccess ? sms : 0;
+  return e;
+}
 
 // Whether one cluster of this launch fits the device: allows a non-portable
 // cluster size (more than 8 blocks) first, then asks the occupancy

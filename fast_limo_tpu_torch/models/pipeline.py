@@ -26,7 +26,7 @@ from fast_limo_tpu_torch.models import deskew as dsk
 from fast_limo_tpu_torch.models import iekf, mapper, measurement, preprocess
 from fast_limo_tpu_torch.models import process as proc
 from fast_limo_tpu_torch.models import state as st
-from fast_limo_tpu_torch.ops import dispatch, so3, sort, voxel
+from fast_limo_tpu_torch.ops import dispatch, so3, voxel
 from fast_limo_tpu_torch.utils.config import Config
 
 
@@ -142,9 +142,6 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
     additionally splits the matching work over ``num_query_shards`` ranks
     (see models/measurement.py); everything else is replicated."""
     device = dispatch.resolve_device(device)
-    if device.type == "cuda":
-        # the voxel sort takes the whole scan; the insert sort at most that
-        sort.require_fits(cfg.tpu.max_points_per_scan, "tpu.max_points_per_scan")
     mp_cfg = cfg.ikfom.mapping
     voxel_size = cfg.map_voxel_size
     k = mp_cfg.NUM_MATCH_POINTS

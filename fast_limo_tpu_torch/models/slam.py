@@ -34,7 +34,7 @@ import torch
 from fast_limo_tpu_torch.models import icp, mapper, posegraph, scancontext
 from fast_limo_tpu_torch.models import relocalize as rl
 from fast_limo_tpu_torch.models.localizer import Localizer
-from fast_limo_tpu_torch.ops import dispatch, so3, sort
+from fast_limo_tpu_torch.ops import dispatch, so3
 from fast_limo_tpu_torch.utils.config import Config
 
 _CONJ = np.array([1.0, -1.0, -1.0, -1.0])
@@ -163,11 +163,6 @@ class SLAM:
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
         self.loop_cfg = loop_cfg or LoopConfig()
-        if self.device.type == "cuda":
-            # a map rebuild inserts rebuild_batch keyframe clouds in one sort
-            lc = self.loop_cfg
-            sort.require_fits(max(1, lc.rebuild_batch) * max(lc.rebuild_points, lc.icp_points),
-                              "LoopConfig.rebuild_batch × rebuild_points")
         if enable_loop_closure and cfg.tpu.scan_chunk > 1:
             # keyframe capture reads per-scan clouds off last_output; the
             # chunked replay path stacks outputs and is odometry-only

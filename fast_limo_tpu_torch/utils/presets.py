@@ -7,6 +7,10 @@ at a 4 mm LSB, one scan a dispatch), kept here because ``bench.py``
 imports JAX.  The bench's chunked replay sets ``tpu.scan_chunk = 4`` on
 top of it (``bench.py:397-398``).
 
+``ouster128_cfg``/``ouster128_sequence`` are the same configuration and
+corridor for a 128-beam lidar: 262 144 points a sweep, which both K9
+sorts of a scan take whole.
+
 ``bench_sequence`` is the bench's "benign" synthetic corridor
 (``bench.make_seq``); ``soak_sequence``/``soak_loop_cfg`` are the closed
 circuit and loop-closure settings of its long-run soak
@@ -52,6 +56,38 @@ def kitti_like_cfg() -> Config:
     cfg.tpu.quantize_transfer = 0.004           # int16 payload, 4 mm LSB
     cfg.tpu.max_insert_points = 10000
     return cfg
+
+
+def ouster128_cfg() -> Config:
+    """``kitti_like_cfg`` for an Ouster OS1-128 in its 2048 × 10 Hz mode
+    (Ouster's OS1 datasheet: 128 channels × 2048 columns = 262 144 points a
+    sweep).  ``max_insert_points = 0``, the JAX ``Config`` default
+    (``fast_limo_tpu/utils/config.py:166``), gives the map insert the
+    scan's own width, so the voxel sort and the insert sort both take
+    262 144 elements."""
+    cfg = kitti_like_cfg()
+    cfg.tpu.max_points_per_scan = 128 * 2048
+    cfg.tpu.max_insert_points = 0
+    return cfg
+
+
+def ouster128_sequence(seed: int = 7, n_scans: int = 24, points_per_scan: int = 128 * 2048):
+    """The bench's benign corridor seen by an Ouster OS1-128 (Ouster's OS1
+    datasheet: 128 channels over a 45° vertical field of view, ±22.5°;
+    2048 × 10 Hz mode): returns on 128 rings, azimuth-coupled firing times.
+    A ring sensor returns only the world points near its beams, and on
+    ``build_world``'s default corridor (150 000 ground and 150 000 wall
+    points) a sweep holds ~13 700 returns; the same surfaces are sampled
+    ``dense`` times as densely, 20× for a full 262 144-point sweep, so that
+    a sweep holds ``points_per_scan`` returns."""
+    dense = max(1, -(-20 * points_per_scan // (128 * 2048)))
+    return synthetic.SyntheticSequence(
+        seed=seed, n_scans=n_scans, points_per_scan=points_per_scan,
+        noise_pt=0.01, noise_gyro=5e-4, noise_acc=5e-3,
+        traj=synthetic.Trajectory(v_forward=15.0, yaw_amp=0.5),
+        world=synthetic.build_world(seed, n_wall_pts=150_000 * dense,
+                                    n_ground_pts=150_000 * dense),
+        ring_beams=128, beam_fov=(-0.3927, 0.3927))
 
 
 def bench_sequence(seed: int = 7, n_scans: int = 24, points_per_scan: int = 32768):

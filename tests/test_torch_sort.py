@@ -5,13 +5,17 @@ the JAX callers run by default at the two sizes of the main path (N =
 10000 insert, 32768 voxel).  Every output must be equal element for
 element.  The kernel itself (``csrc/sort3.cu``) runs only on the card
 (tests/test_torch_cuda.py); here the CPU wrappers must not count launches,
-and the two callers' orders must be those of the stable int64 packed-key
-sort they replaced."""
+the two callers' orders must be those of the stable int64 packed-key sort
+they replaced, no sort width may be refused when the step or the SLAM
+engine is built for the card, and the plain version must hold above the
+cluster kernel's 2^17 too (the grid kernel's route on the card)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from fast_limo_tpu.ops import sort as jsort
 from fast_limo_tpu_torch.ops import sort, voxel
@@ -120,26 +124,83 @@ def test_cpu_tensors_launch_nothing_and_the_kernel_refuses_them():
         sort._launch(k, k, k)
 
 
-def test_card_builds_refuse_sorts_above_the_cap(monkeypatch):
-    """A scan or a SLAM map rebuild larger than the kernel's MAXN is refused
-    when the Localizer or the SLAM engine is built on the card, not at the
-    first scan's sort.  The card is stood in for by resolve_device, so the
-    refusal must come before anything touches it."""
+class _CudaOnCpu(TorchFunctionMode):
+    """A stood-in card: tensors asked for on a CUDA device are made on the
+    CPU, so code that takes its card branches can be built here."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if kwargs.get("device") is not None and torch.device(kwargs["device"]).type == "cuda":
+            kwargs["device"] = "cpu"
+        return func(*args, **kwargs)
+
+
+def test_card_builds_take_a_128_beam_scan_and_a_262144_point_rebuild(monkeypatch):
+    """No sort width is refused any more when the Localizer or the SLAM
+    engine is built for the card: a 128-beam scan (both K9 sorts of a scan
+    at 262 144 elements) and a map rebuild of 32 × 8192 points take K9's
+    grid route.  The card is stood in for by resolve_device and the CPU."""
     from fast_limo_tpu_torch.models.localizer import Localizer
     from fast_limo_tpu_torch.models.slam import SLAM, LoopConfig
     from fast_limo_tpu_torch.ops import dispatch
     from fast_limo_tpu_torch.utils import presets
 
-    sort.require_fits(sort.MAXN, "n")
-    with pytest.raises(ValueError, match="at most"):
-        sort.require_fits(sort.MAXN + 1, "n")
     monkeypatch.setattr(dispatch, "resolve_device", lambda device: torch.device("cuda"))
-    cfg = presets.kitti_like_cfg()
-    cfg.tpu.max_points_per_scan = 2 * sort.MAXN         # a 128-beam scan
-    with pytest.raises(ValueError, match="max_points_per_scan = 262144"):
-        Localizer(cfg, "cuda")
-    with pytest.raises(ValueError, match="max_points_per_scan"):
-        SLAM(cfg, device="cuda")
-    cfg.tpu.max_points_per_scan = 32768
-    with pytest.raises(ValueError, match="rebuild_points = 139264"):
-        SLAM(cfg, LoopConfig(rebuild_batch=17), device="cuda")
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: None)
+    cfg = presets.ouster128_cfg()
+    assert cfg.tpu.max_points_per_scan == 262144 and cfg.tpu.max_insert_points == 0
+    lc = LoopConfig(rebuild_batch=32)
+    assert lc.rebuild_batch * max(lc.rebuild_points, lc.icp_points) == 262144
+    with _CudaOnCpu():
+        assert Localizer(cfg, "cuda").device.type == "cuda"
+        assert SLAM(presets.kitti_like_cfg(), lc, device="cuda").device.type == "cuda"
+        assert SLAM(cfg, device="cuda").loc.device.type == "cuda"
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that passes the wrappers' device check, for the checks
+    that come after it (no kernel is reached)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_the_kernel_refuses_no_element_and_a_strided_operand(monkeypatch):
+    """``sort._launch`` keeps its checks of type, shape and contiguity and
+    takes 1 to 2^31 - 1 elements: an empty sort and a strided view are
+    refused before the library is asked for."""
+    from fast_limo_tpu_torch.ops import dispatch
+
+    monkeypatch.setattr(dispatch, "library", lambda: pytest.fail("the kernel was reached"))
+    empty = torch.zeros(0, dtype=torch.int32).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="1 to 2147483647 elements, got 0"):
+        sort._launch(empty, empty, empty)
+    a = torch.arange(2 * (sort.CLUSTER_MAXN + 1), dtype=torch.int32).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="contiguous"):
+        sort._launch(a[::2], a[1::2], a[::2])
+    with pytest.raises(ValueError, match="int32"):
+        sort._launch(a.long(), a, a)
+    assert sort.MAXN == 2 ** 31 - 1 and sort.CLUSTER_MAXN == 1 << 17
+
+
+def test_plain_matches_lax_sort_above_the_cluster():
+    """At N = 2^18 + 3 (the grid kernel's route on the card) the plain
+    version equals ``lax.sort`` over all three operands, for full-range
+    keys with INT32_MIN / INT32_MAX, heavy ties and a repeated v, and the
+    JAX callers' sorts on their forms."""
+    n = (1 << 18) + 3
+    rng = np.random.default_rng(n)
+    i32 = np.iinfo(np.int32)
+    k1 = rng.integers(i32.min, i32.max, n, endpoint=True).astype(np.int32)
+    k1[rng.random(n) < 0.2] = i32.max
+    k1[rng.random(n) < 0.2] = i32.min
+    k2 = rng.integers(-2, 2, n).astype(np.int32)
+    v = rng.integers(-3, 3, n).astype(np.int32)
+    want = jax.lax.sort((jnp.asarray(k1), jnp.asarray(k2), jnp.asarray(v)), num_keys=3)
+    _assert_equal(_port(k1, k2, v), want)
+    ar = np.arange(n, dtype=np.int32)
+    _assert_equal(_port(k1, k2, ar), jsort.sort3(jnp.asarray(k1), jnp.asarray(k2),
+                                                 jnp.asarray(ar)))
+    got = sort.sort_key_val(torch.tensor(k1), torch.tensor(ar))
+    _assert_equal([t.numpy() for t in got], jsort.sort_key_val(jnp.asarray(k1), jnp.asarray(ar)))

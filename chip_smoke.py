@@ -232,10 +232,14 @@ Phases (each prints its own lines):
                   WIDE_PROFILED profiled scans cudaLaunchKernel and device
                   busy a scan, and the peak memory;
               (b) K9 on (a)'s captured voxel and insert sorts, and on seeded
-                  sorts at N = 2^17 (the cluster kernel), 2^17 + 1, 2^20 and
-                  2^22 (the grid kernel): all three outputs bit-equal to
-                  sort3_plain, one CUDA kernel a call, with both torch.sort
-                  yardsticks; full-range triples bit-equal at each N;
+                  sorts at the switch (sort.CLUSTER_MAXN, the cluster
+                  kernel) and one above it in both forms, and at 2^17 + 1,
+                  2^20 and 2^22 (the grid kernel): all three outputs
+                  bit-equal to sort3_plain, one CUDA kernel a call, with
+                  both torch.sort yardsticks; full-range triples bit-equal
+                  at each N; then both routes timed at K9_CROSSOVER_N in
+                  both forms, each held bit-equal, and the crossover table
+                  that the switch was set from printed;
               (c) phase 9's soak engine rebuilds its map at rebuild_batch
                   32 (32 keyframe clouds of 8192 points, 262 144 in one
                   insert): its K9 calls through the grid kernel, the first
@@ -309,8 +313,11 @@ def _time_ms(fn, reps: int = 5) -> float:
 def _device_ms(fn, prefix=None, reps: int = 5):
     """Device time of one fn() call from torch.profiler (CUPTI), over reps
     runs after one warm-up: the CUDA kernels whose names start with
-    ``prefix``, or every device op of the call if None.  None if the
-    profiler records no device op in three sessions."""
+    ``prefix``, or every device op of the call if None.  A session must
+    record the named kernels a whole number of times a call (a session has
+    missed some launches of a cooperative grid kernel, PERF §7); None ("not
+    measured") if none of three sessions records a device op, or the named
+    kernels a whole number of times a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -322,12 +329,11 @@ def _device_ms(fn, prefix=None, reps: int = 5):
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        if ev:
-            break
-    if not ev:
-        return None
-    mine = [e for e in ev if prefix is None or _kname(e.key).startswith(prefix)]
-    return sum(e.self_device_time_total for e in mine) / reps / 1e3
+        mine = [e for e in ev if prefix is None or _kname(e.key).startswith(prefix)]
+        n = sum(e.count for e in mine)
+        if ev and (prefix is None or (n and n % reps == 0)):
+            return sum(e.self_device_time_total for e in mine) / 1e3 / reps
+    return None
 
 
 def _query_timing(torch, call, reps: int = 3) -> dict:
@@ -2243,11 +2249,60 @@ def _shard_phase(dev, cfg, seq, loc, counts, zero, report, rows_out, soak_graph)
 # (the port's plain versions there: 0.00849 m, max |dpos| 1.4e-4 m)
 JAX_WIDE_ATE = 0.00848
 WIDE_PROFILED = 4   # scans of (a) under torch.profiler, after the warm-up
+# the sizes at which both K9 routes are timed, both forms, to place the switch
+K9_CROSSOVER_N = (1024, 4096, 10000, 16384, 24576, 32768, 65536, 98304, 1 << 17)
+K9_WIDE_INPUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                              "k9_wide.npz")   # phase 12's captured sorts, for k9_phases.py
+
+
+def _k9_seeded(torch, dev, form, N, seed):
+    """Seeded K9 operands of a caller's form: "voxel" (an int32 voxel key
+    with a fifth of it marked invalid, arange, arange: 4 passes over k1) or
+    "insert" (a group index with invalid marks, a packed 30-bit voxel,
+    arange: 8 passes over k1 and k2)."""
+    rng = np.random.default_rng(seed)
+    ar = np.arange(N, dtype=np.int32)
+    if form == "voxel":
+        k1 = rng.integers(0, 1 << 30, N).astype(np.int32)
+        k2 = ar
+    else:
+        k1 = rng.integers(0, max(N // 8, 1), N).astype(np.int32)
+        k2 = rng.integers(0, 1 << 30, N).astype(np.int32)
+    k1[rng.random(N) < 0.2] = np.iinfo(np.int32).max
+    return [torch.tensor(x, device=dev) for x in (k1, k2, ar)]
+
+
+def _k9_crossover(torch, dev, sort):
+    """Both K9 routes at each of K9_CROSSOVER_N, both forms: device ms of
+    one call (torch.profiler, the median of three sessions of 5 calls), each
+    held bit-equal to the plain version → ({(N, form): (cluster ms, grid
+    ms)}, the largest N at which the cluster kernel wins in both forms, or
+    0)."""
+    table, upto = {}, 0
+    for N in K9_CROSSOVER_N:
+        for form in ("voxel", "insert"):
+            ops = _k9_seeded(torch, dev, form, N, N)
+            want = sort.sort3_plain(*ops)
+            ms = []
+            for grid, prefix in ((False, "fl_sort3_kernel"), (True, "fl_sort3_grid")):
+                got = sort._launch(*ops, grid=grid)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    _fail(f"K9 crossover: the {prefix} route at N = {N} ({form}) differs from "
+                          f"the plain version")
+                runs = [_device_ms(lambda: sort._launch(*ops, grid=grid), prefix)
+                        for _ in range(3)]
+                runs = [x for x in runs if x is not None]
+                ms.append(float(np.median(runs)) if runs else None)
+            table[N, form] = tuple(ms)
+        if all(None not in table[N, f] and table[N, f][0] < table[N, f][1]
+               for f in ("voxel", "insert")):
+            upto = N
+    return table, upto
 
 
 def _k9_row(torch, report, name, k1, k2, v, launches, form):
     """A K9 row of the wide phase: all three outputs bit-equal to the plain
-    version, one CUDA kernel a call (the grid kernel above 2^17, the
+    version, one CUDA kernel a call (the grid kernel above the switch, the
     cluster kernel at or below it), with both one-call yardsticks: torch.sort
     of the int32 key with its indices, and of the int64 key (k1 << 30) | k2;
     the form's own is the row's library call."""
@@ -2379,31 +2434,42 @@ def _wide_phase(dev, counts, zero, report, soak_slam):
         _fail(f"wide: the scan step synchronized the host at port lines {_port_syncs(census)}")
 
     # (b) K9 against its plain version: (a)'s two sorts, then seeded sorts
-    # of the insert's form (group with invalid marks, packed voxel, index)
-    # at the cluster kernel's last size and above it
+    # of the callers' forms
     sorts = cap.get("sorts", [])
     if len(sorts) != 2 or any(int(x[0].shape[0]) != cfg.tpu.max_points_per_scan for x in sorts):
         _fail(f"wide: captured K9 calls at N = {[int(x[0].shape[0]) for x in sorts]}")
     n_grid = c["sort3_grid"]
     _k9_row(torch, report, "sort3 (grid, voxel)", *sorts[0], n_grid, "voxel")
     _k9_row(torch, report, "sort3 (grid, insert)", *sorts[1], n_grid, "insert")
+    # the switch's two sides in both forms, then the grid route above 2^17
+    switch = sort.CLUSTER_MAXN
+    sizes = [(N, form) for N in (switch, switch + 1) for form in ("insert", "voxel") if N >= 1]
+    sizes += [(N, "insert") for N in ((1 << 17) + 1, 1 << 20, 1 << 22) if N != switch + 1]
     rng = np.random.default_rng(12)
-    for N in (sort.CLUSTER_MAXN, sort.CLUSTER_MAXN + 1, 1 << 20, 1 << 22):
-        g = rng.integers(0, max(N // 8, 1), N).astype(np.int32)
-        g[rng.random(N) < 0.2] = np.iinfo(np.int32).max
-        ops = [torch.tensor(x, device=dev) for x in
-               (g, rng.integers(0, 1 << 30, N).astype(np.int32), np.arange(N, dtype=np.int32))]
-        route = "grid" if N > sort.CLUSTER_MAXN else "cluster"
-        _k9_row(torch, report, f"sort3 ({route}, N={N})", *ops, 0, "insert")
+    for N, form in sizes:
+        ops = _k9_seeded(torch, dev, form, N, 12 + N)
+        route = "grid" if N > switch else "cluster"
+        tag = "" if form == "insert" else "voxel, "
+        _k9_row(torch, report, f"sort3 ({route}, {tag}N={N})", *ops, 0, form)
         full = [torch.tensor(rng.integers(-2 ** 31, 2 ** 31, N).astype(np.int32), device=dev)
                 for _ in range(3)]
         for i, (a, b) in enumerate(zip(sort.sort3(*full), sort.sort3_plain(*full))):
             if not torch.equal(a, b):
                 _fail(f"K9 at N = {N}, full-range triples: output {i} differs from the plain")
     torch.cuda.synchronize()
-    print("[smoke] wide: (b) K9 bit-equal to its plain version at N = 2^17 (cluster), "
-          "2^17 + 1, 2^18 (the captured sorts), 2^20 and 2^22 (grid), insert form and "
-          "full-range triples", flush=True)
+    print(f"[smoke] wide: (b) K9 bit-equal to its plain version at N = "
+          f"{sorted({N for N, _ in sizes})} and 2^18 (the captured sorts), the switch "
+          f"(CLUSTER_MAXN = {switch}) on both sides in both forms, full-range triples too",
+          flush=True)
+    table, upto = _k9_crossover(torch, dev, sort)
+    print("[smoke] wide: (b) K9 crossover, device ms a call (torch.profiler, median of 3 "
+          "sessions of 5 calls), cluster / grid kernel:", flush=True)
+    for N in K9_CROSSOVER_N:
+        cells = " | ".join(f"{form} {_fmt(table[N, form][0])} / {_fmt(table[N, form][1])}"
+                           for form in ("voxel", "insert"))
+        print(f"[smoke] wide: (b)   N = {N:6d}: {cells}", flush=True)
+    print(f"[smoke] wide: (b) the largest N at which the cluster kernel wins both forms: "
+          f"{upto} (0: none); the switch CLUSTER_MAXN = {switch}", flush=True)
 
     # (c) a map rebuild of 32 keyframe clouds in one insert on phase 9's
     # soak, then 24 more scans of the soak on the rebuilt map
@@ -2439,6 +2505,10 @@ def _wide_phase(dev, counts, zero, report, soak_slam):
             any(int(x[0].shape[0]) != width for x in rebuilt):
         _fail(f"wide: the rebuild's K9 calls were not {n_ins} grid sorts of 262 144")
     _k9_row(torch, report, "sort3 (grid, rebuild)", *rebuilt[0], c["sort3_grid"], "insert")
+    os.makedirs(os.path.dirname(K9_WIDE_INPUTS), exist_ok=True)
+    np.savez(K9_WIDE_INPUTS, **{name: torch.stack(ops).cpu().numpy() for name, ops in
+                                (("voxel", sorts[0]), ("insert", sorts[1]),
+                                 ("rebuild", rebuilt[0]))})
     soak = presets.soak_sequence(216)
     s_stamps, s_acc, s_gyro = soak.imu_stream()
     s_scans = [soak.scan(i) for i in range(soak.n_scans)]
@@ -2744,10 +2814,13 @@ def main() -> None:
     if main_counts["fit_planes_select"] != evals * args.scans or main_counts["fit_planes"]:
         _fail(f"K3 launched {main_counts['fit_planes_select']} + {main_counts['fit_planes']} "
               f"times in {args.scans} scans, not once an evaluation ({evals} a scan)")
-    if main_counts["sort3"] != 2 * args.scans or main_counts["sort3_grid"]:
+    # K9 twice a scan, each sort on the route its width takes at the switch
+    n_grid = args.scans * sum(n > sort.CLUSTER_MAXN for n in
+                              (cfg.tpu.max_points_per_scan, cfg.tpu.max_insert_points))
+    if main_counts["sort3"] != 2 * args.scans or main_counts["sort3_grid"] != n_grid:
         _fail(f"K9 launched {main_counts['sort3']} times in {args.scans} scans "
               f"({main_counts['sort3_grid']} through the grid kernel), not twice a scan "
-              f"through the cluster kernel")
+              f"with {n_grid} through the grid kernel (CLUSTER_MAXN = {sort.CLUSTER_MAXN})")
     # K2: one window resolve a scan, one select launch an evaluation
     n_window = cap.get("n_window", 0)
     if n_window != args.scans or main_counts["knn_rows"] != (1 + evals) * args.scans:

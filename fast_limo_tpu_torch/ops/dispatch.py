@@ -52,6 +52,7 @@ _SIGNATURES = {
                        _I, _I, _P, _P, _P, _P, _P],
     "fl_sort3": [_P] * 3 + [_I] + [_P] * 7 + [_I, _P],
     "fl_sort3_grid_blocks": [],
+    "fl_sort3_grid_table": [_I],
 }
 
 _lib = None

@@ -18,7 +18,8 @@ K2 (every schedule at k = 1 … 128, V = 8 and 27; an overflowing warp list;
 NaN and overflowing distances; the select entry at each branch) sq, valid
 and nbrs bit-equal, invalid tail included; K1
 on stacked frames and on the scan step's two row sources; K9 bit-equal through
-both routes (the cluster kernel to 2^17, the grid kernel to 2^20); K8 against float64 truth within
+both routes (the cluster kernel to the switch, the grid kernel above it to 2^22, and
+each route named at 1 … 2^17); K8 against float64 truth within
 12× the float32 library solve's error + 2e-5 of the largest entry (the rule
 of tests/test_gain.py; likewise against 12× its plain version's error) and
 to its plain version within rtol 1e-3 + 1e-3 of the largest entry on the
@@ -674,12 +675,15 @@ def _k9_cases(N):
              same, ar)]
 
 
-@pytest.mark.parametrize("N", [1, 127, 4096, 10000, 32768, 65536, sort.CLUSTER_MAXN,
-                               sort.CLUSTER_MAXN + 1, 1 << 18, 1 << 20])
+@pytest.mark.parametrize("N", sorted({1, 127, 4096, 10000, 32768, 65536, 1 << 17,
+                                      (1 << 17) + 1, 1 << 18, 1 << 20, 1 << 22,
+                                      max(sort.CLUSTER_MAXN - 1, 1), sort.CLUSTER_MAXN,
+                                      sort.CLUSTER_MAXN + 1}))
 def test_k9_sort3(dev, N):
     """K9 against its plain version, all three outputs bit-equal, with one
-    CUDA kernel a call: the cluster kernel up to 2^17, the grid kernel
-    above it (``sort3.grid_launches`` counts the route)."""
+    CUDA kernel a call: the cluster kernel up to the switch
+    (``sort.CLUSTER_MAXN``), the grid kernel above it
+    (``sort3.grid_launches`` counts the route)."""
     grid = N > sort.CLUSTER_MAXN
     for name, *ops in _k9_cases(N):
         args = [torch.tensor(a, device=dev) for a in ops]
@@ -696,6 +700,25 @@ def test_k9_sort3(dev, N):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[2])
 
 
+@pytest.mark.parametrize("N", [1, 127, 2048, 2049, 10000, 32768, 65536, 98304, 1 << 17])
+def test_k9_both_routes_at_the_crossover_sizes(dev, N):
+    """Each route named explicitly (the crossover measurement's calls) at
+    sizes both take: bit-equal to the plain version, one CUDA kernel a
+    call, the grid route counted in ``sort3.grid_launches``."""
+    for name, *ops in _k9_cases(N):
+        args = [torch.tensor(a, device=dev) for a in ops]
+        want = sort.sort3_plain(*args)
+        for grid in (False, True):
+            g0 = sort.sort3.grid_launches
+            got = _once(sort.sort3, lambda: sort._launch(*args, grid=grid))
+            assert sort.sort3.grid_launches == g0 + int(grid), name
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (name, grid)
+    for grid, prefix in ((False, "fl_sort3_kernel"), (True, "fl_sort3_grid")):
+        assert _cuda_kernels(lambda: sort._launch(*args, grid=grid), "fl_sort3") == 1
+        assert _cuda_kernels(lambda: sort._launch(*args, grid=grid), prefix) == 1
+
+
 def test_k9_refuses_what_it_does_not_take(dev):
     """Wrong type, a strided view, no element."""
     a = torch.arange(8, dtype=torch.int32, device=dev)
@@ -705,6 +728,9 @@ def test_k9_refuses_what_it_does_not_take(dev):
     big = torch.arange(2 * (sort.CLUSTER_MAXN + 1), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):   # the grid route checks its operands alike
         sort.sort3(big[::2], big[1::2], big[::2])
+    over = torch.arange(sort.CLUSTER_CAP + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most"):   # past the cluster's reach
+        sort._launch(over, over, over, grid=False)
 
 
 def test_split_transfer_matches_synchronous_copies(dev, scan):

@@ -1,22 +1,26 @@
 """K9's grid kernel (csrc/sort3.cu, ``fl_sort3_grid_kernel``: the sorts
-above 2^17 elements) on the CPU.
+above the cluster/grid switch) on the CPU.
 
-A NumPy emulation of the kernel's exact schedule — the array cut into G
-contiguous tiles of ceil(N / G); the skip rule's AND / OR and out-of-order
-flags taken per tile (each tile's first element against the previous
-tile's last) and reduced over the grid; a pass's per-tile digit counts, the
-grid's digit totals and the lower tiles' counts in tile order; the tile
-ranked and scattered a chunk of 4096 at a time (16 warps of 256 elements,
-each ranking its segment stably, rounds of 32 lanes in order; the warps'
-counts scanned in warp order), with a running offset per digit from chunk
-to chunk; the
-ping-pong between the output and the scratch chosen so that the last pass
-lands in the output — is bit-equal to ``sort3_plain`` and to the JAX
-package's ``lax.sort`` on adversarial inputs at N = 2^17 + 1, 2^18 + 3 and
-2^19 + 5, with G = 132 (one block a streaming multiprocessor of the H100),
-7 and 1.  Every destination is written exactly once.  The emulation reads
-its block size, rounds and chunk from the kernel's source, so the two
-cannot drift apart unnoticed.
+A NumPy emulation of the kernel's schedule — min(G, tiles) blocks, block b
+taking tiles b, b + G, ... of THREADS × ITEMS elements; one read of the
+input up front for the skip rule's AND / OR and out-of-order flags and all
+twelve digits' counts, each block's summed into the table; per pass, each
+warp's stable rank of its contiguous segment (rounds of 32 lanes in
+order), the warps' counts scanned in warp order, the tile reordered by digit
+in shared memory (every slot written once); the tile's digit counts
+published as "aggregate" (tile 0: "inclusive prefix"), then each tile's
+look-back over the lower tiles' words, a window of LOOK at a time, through
+a status table that carries each word's pass code over from pass to pass
+as the kernel's does, the tiles of a wave ready in a seeded random order
+(so a walk meets words not ready: the launch's zeros or an earlier pass's,
+and long runs of aggregates); the digit-run write (thread i
+writes element i of the reordered tile to its digit's base + the lower
+tiles' count + its place in the run), every destination written exactly
+once; the ping-pong between the output and the scratch that lands the last
+pass in the output — is bit-equal to ``sort3_plain`` and to the JAX
+package's ``lax.sort`` on adversarial inputs.  The emulation reads its
+block size, elements a thread and look-back window from the kernel's
+source, so the two cannot drift apart unnoticed.
 """
 
 import functools
@@ -41,90 +45,129 @@ def _define(name):
 
 
 THREADS = _define("FL_SORTG_THREADS")
-ROUNDS = _define("FL_SORTG_ROUNDS")
+ITEMS = _define("FL_SORTG_ITEMS")
+LOOK = _define("FL_SORTG_LOOK")
 WARPS = THREADS // 32
-SEG = 32 * ROUNDS                 # a warp's segment of a chunk
-CHUNK = THREADS * ROUNDS          # elements a block ranks at once
+SEG = 32 * ITEMS                  # a warp's contiguous segment of a tile
+TILE = THREADS * ITEMS
+GRID = 132                        # the kernel's resident grid on an H100: one block an SM
 I32 = np.iinfo(np.int32)
 
 
 def _digit(x, shift):
-    return (((x.view(np.uint32) ^ np.uint32(0x80000000)) >> np.uint32(shift)) & 0xFF).astype(np.int32)
+    return (((x.view(np.uint32) ^ np.uint32(0x80000000)) >> np.uint32(shift)) & 0xFF).astype(np.int64)
 
 
-def _skip(all_, p):
+def _skip(words, p):
     """fl_sort_skip: pass p over a constant digit, or over operands the
     input already has in order."""
     op, shift = 2 - p // 4, 8 * (p % 4)
-    constant = ((int(all_[op]) ^ int(all_[3 + op])) >> shift) & 0xFF == 0
-    in_order = (op == 2 and all_[6] == 0) or (op >= 1 and all_[7] == 0)
+    constant = ((int(words[op]) ^ int(words[3 + op])) >> shift) & 0xFF == 0
+    in_order = (op == 2 and words[6] == 0) or (op >= 1 and words[7] == 0)
     return constant or in_order
 
 
 def _excl(a, axis=0):
-    return np.cumsum(a, axis=axis, dtype=np.int32) - a
+    return np.cumsum(a, axis=axis) - a
 
 
-def _grouped_excl(a, starts, group):
-    """Exclusive cumulative sums of the rows of ``a`` within consecutive
-    groups (``starts``: each group's first row; ``group``: a row's group)."""
-    e = _excl(a)
-    return e - e[starts][group]
-
-
-def _layout(N, G):
-    """The kernel's cut of N elements over G blocks: each element's block,
-    its warp segment (a chunk's warp's 256 elements) and its place there;
-    each segment's chunk, each chunk's block."""
-    per = -(-N // G)
-    lo = np.minimum(np.arange(G) * per, N)
-    hi = np.minimum(lo + per, N)
-    block = np.repeat(np.arange(G), hi - lo)
-    i = np.arange(N) - lo[block]                     # index in the tile
-    nch = -(-per // CHUNK)
-    chunk = block * nch + i // CHUNK                 # the grid's chunk number
-    sk = chunk * WARPS + (i % CHUNK) // SEG          # the grid's segment number (ascending)
-    first = np.r_[True, sk[1:] != sk[:-1]]
-    seg = np.cumsum(first) - 1
-    seg_chunk = chunk[first]
-    cfirst = np.r_[True, seg_chunk[1:] != seg_chunk[:-1]]
-    seg_group = np.cumsum(cfirst) - 1                # a segment's chunk, numbered densely
-    chunk_block = seg_chunk[cfirst] // nch
-    bfirst = np.r_[True, chunk_block[1:] != chunk_block[:-1]]
-    seg = seg.astype(np.int32)
-    return dict(lo=lo, hi=hi, block=block, seg=seg, pidx=seg * SEG + i % SEG,
-                nseg=int(seg[-1]) + 1, seg_starts=np.flatnonzero(cfirst), seg_group=seg_group,
-                elem_chunk=seg_group[seg].astype(np.int32), chunk_starts=np.flatnonzero(bfirst),
-                chunk_block=chunk_block, chunk_bgroup=np.cumsum(bfirst) - 1)
-
-
-def _skip_words(k1, k2, v, L):
-    """The grid's AND ×3, OR ×3 and out-of-order flags ×2: each tile's
-    words (its first element against the previous tile's last), then AND /
-    OR over the tiles."""
-    u = [a.view(np.uint32) for a in (k1, k2, v)]
-    live = L["hi"] > L["lo"]
-    lo = L["lo"][live]
-    words = [np.bitwise_and.reduceat(x, lo) for x in u] + \
-            [np.bitwise_or.reduceat(x, lo) for x in u]
-    bad_v = np.r_[False, v[:-1] > v[1:]]             # element g against g - 1
+def _prologue(ops, G):
+    """The up-front read: each block's skip words (its elements against
+    their predecessors) and digit counts over its tiles b, b + G, ..., then
+    the grid's (AND / OR over the blocks, counts summed)."""
+    N = ops[0].shape[0]
+    k2, v = ops[1], ops[2]
+    bad_v = np.r_[False, v[:-1] > v[1:]]             # element e against e - 1
     bad_kv = np.r_[False, (k2[:-1] > k2[1:]) | ((k2[:-1] == k2[1:]) & (v[:-1] > v[1:]))]
-    words += [np.logical_or.reduceat(bad_v, lo), np.logical_or.reduceat(bad_kv, lo)]
-    return ([int(np.bitwise_and.reduce(w)) for w in words[:3]]
-            + [int(np.bitwise_or.reduce(w.astype(np.uint32))) for w in words[3:]])
+    block = (np.arange(N) // TILE) % G
+    order = np.argsort(block, kind="stable")
+    cuts = np.flatnonzero(np.r_[True, block[order][1:] != block[order][:-1]])
+    u = [a.view(np.uint32)[order] for a in ops]
+    words = [int(np.bitwise_and.reduce(np.bitwise_and.reduceat(x, cuts))) for x in u]
+    words += [int(np.bitwise_or.reduce(np.bitwise_or.reduceat(x, cuts))) for x in u]
+    words += [int(np.logical_or.reduceat(f[order], cuts).any()) for f in (bad_v, bad_kv)]
+    totals = np.zeros((12, 256), np.int64)
+    for p in range(12):
+        per_block = np.bincount(block * 256 + _digit(ops[2 - p // 4], 8 * (p % 4)),
+                                minlength=G * 256).reshape(G, 256)
+        totals[p] = per_block.sum(axis=0)
+    return words, totals
 
 
-def grid_sort3(k1, k2, v, G, L=None):
-    """The grid kernel's schedule with G blocks → (o1, o2, o3, passes)."""
+def _look_back(own, G, look, status, taken, rng):
+    """Every tile's exclusive prefix over the lower tiles' digit counts, as
+    the kernel's look-back reads it from ``status``: per tile a word's pass
+    code (uint32: 2·taken + 1 "aggregate", 2·taken + 2 "inclusive prefix";
+    anything else — the zero the launch starts from, an earlier pass's code
+    — is not ready) and its 256 counts, carried over from pass to pass and
+    never cleared.  Per wave (the G tiles that the blocks take together) the
+    tiles' counts become ready in a seeded random order of rounds; a tile
+    publishes its aggregate (tile 0 its inclusive prefix) in its round and
+    starts its walk there.  In each round every walking tile reads a window
+    of ``look`` words, nearest first, adds the counts of the ready words up
+    to the first inclusive prefix, stops at a word not ready (read again the
+    next round) and moves on by the words it used; a tile that has met an
+    inclusive prefix publishes its own after the round.  The prefix is the
+    sum of the words the walk read, nothing else.  The codes advance alike
+    for the 256 digits of a tile, so they are kept once a tile."""
+    code, count = status
+    ntiles = own.shape[0]
+    agg, inc = np.uint32(2 * taken + 1), np.uint32(2 * taken + 2)
+    prefix = np.zeros((ntiles, 256), np.int64)
+    for w0 in range(0, ntiles, G):
+        wave = np.arange(w0, min(w0 + G, ntiles))
+        ready = rng.integers(0, 4, len(wave))       # the round a tile's counts are in
+        done = np.zeros(len(wave), bool)
+        j = wave - 1                                # the next word a walk reads
+        for rnd in range(10 * ntiles + 8):
+            new = ready == rnd
+            code[wave[new]] = np.where(wave[new] == 0, inc, agg)
+            count[wave[new]] = own[wave[new]]
+            done |= new & (wave == 0)
+            live = (ready <= rnd) & ~done
+            if not live.any():
+                if done.all():
+                    break
+                continue
+            used = np.zeros(len(wave), np.int64)
+            met = np.zeros(len(wave), bool)
+            for k in range(look):
+                at = j - k
+                f = np.where(at >= 0, code[np.maximum(at, 0)], 0).astype(np.uint32) \
+                    - np.uint32(2 * taken)
+                live &= (f == 1) | (f == 2)         # a word not ready ends the window
+                prefix[wave[live]] += count[at[live]]
+                used = np.where(live, k + 1, used)
+                met |= live & (f == 2)
+                live &= f != 2
+                if not live.any():
+                    break
+            j -= used
+            t = wave[met]                           # after the round: the inclusive prefixes
+            code[t] = inc
+            count[t] = prefix[t] + own[t]
+            done |= met
+        assert done.all(), "a look-back made no progress"
+    return prefix
+
+
+def grid_sort3(k1, k2, v, G):
+    """The grid kernel's schedule with G resident blocks → (o1, o2, o3, passes)."""
     N = k1.shape[0]
-    L = L or _layout(N, G)
-    all_ = _skip_words(k1, k2, v, L)
-    taken_passes = [p for p in range(12) if not _skip(all_, p)]
+    ntiles = -(-N // TILE)
+    G = min(G, ntiles)
+    words, totals = _prologue((k1, k2, v), G)
+    for p in range(12):
+        direct = np.bincount(_digit((k1, k2, v)[2 - p // 4], 8 * (p % 4)), minlength=256)
+        assert np.array_equal(totals[p], direct), "the blocks' counts do not sum to the input's"
+    taken_passes = [p for p in range(12) if not _skip(words, p)]
+    status = (np.zeros(ntiles, np.uint32), np.zeros((ntiles, 256), np.int64))   # zeroed at launch
+    rng = np.random.default_rng(N * 1009 + G)
     P = len(taken_passes)
     if P == 0:
         return k1.copy(), k2.copy(), v.copy(), 0
-    seg, nseg, pidx = L["seg"], L["nseg"], L["pidx"]
-    rows = 257 * np.arange(nseg, dtype=np.int32)[:, None]
+    e = np.arange(N)
+    tile, seg = e // TILE, e // SEG                   # an element's tile and warp segment
     src = [k1, k2, v]
     out = [np.empty(N, np.int32) for _ in range(3)]
     tmp = [np.empty(N, np.int32) for _ in range(3)]
@@ -133,33 +176,34 @@ def grid_sort3(k1, k2, v, G, L=None):
         dst = tmp if (P - 1 - taken) & 1 else out
         d = _digit(src[op], shift)
         # a warp's stable rank of each element among its segment's of its
-        # digit (the rounds of 32 in order, the lower lanes first)
-        sd = seg * 256 + d
-        wc = np.bincount(sd, minlength=nseg * 256).astype(np.int32).reshape(nseg, 256)
-        dp = np.full(nseg * SEG, 256, np.uint16)
-        dp[pidx] = d
-        dp = dp.reshape(nseg, SEG)
-        order = np.argsort(dp, axis=1, kind="stable")
-        smaller = np.c_[_excl(wc, 1), np.zeros(nseg, np.int32)].reshape(-1)
-        ranked = np.arange(SEG, dtype=np.int32)[None, :] - smaller[rows + np.take_along_axis(dp, order, 1)]
-        rank = np.empty_like(ranked)
-        np.put_along_axis(rank, order, ranked, 1)
-        rank = rank.reshape(-1)[pidx]
-        # the warps' offsets in their chunk, the chunks' in their tile, the
-        # tiles' first destination of each digit (all tiles' counts, summed
-        # in tile order)
-        wo = _grouped_excl(wc, L["seg_starts"], L["seg_group"])
-        cc = np.add.reduceat(wc, L["seg_starts"], axis=0)
-        co = _grouped_excl(cc, L["chunk_starts"], L["chunk_bgroup"])
-        cnt = np.zeros((G, 256), np.int32)
-        cnt[L["chunk_block"][L["chunk_starts"]]] = np.add.reduceat(cc, L["chunk_starts"], axis=0)
-        run = _excl(cnt.sum(0))[None, :] + _excl(cnt)
-        cr = co + run[L["chunk_block"]]
-        pos = cr.reshape(-1)[L["elem_chunk"] * 256 + d] + wo.reshape(-1)[sd] + rank
+        # digit: the rounds of 32 in order, the lower lanes first
+        key = seg * 256 + d
+        order = np.argsort(key, kind="stable")
+        first = np.r_[True, key[order][1:] != key[order][:-1]]
+        rank = np.empty(N, np.int64)
+        rank[order] = e - np.maximum.accumulate(np.where(first, e, 0))
+        # the warps' counts, the lower warps' in the tile, the tile's counts
+        wc = np.bincount(key, minlength=ntiles * WARPS * 256).reshape(ntiles, WARPS, 256)
+        lower_warps = (np.cumsum(wc, axis=1) - wc).reshape(-1)
+        own = wc.sum(axis=1)
+        start = _excl(own, axis=1)                    # each digit's run in the reordered tile
+        td = tile * 256 + d
+        at = start.reshape(-1)[td] + lower_warps[key] + rank
+        slot = tile * TILE + at
+        assert (np.bincount(slot, minlength=N) == 1).all(), \
+            "the shared-memory reorder wrote a slot twice"
+        prefix = _look_back(own, G, LOOK, status, taken, rng)
+        assert np.array_equal(prefix, _excl(own, axis=0)), "the look-back missed a tile"
+        # thread i writes element i of the reordered tile to its digit's
+        # run: base + the lower tiles' count + its place in the run
+        to = (_excl(totals[p])[None, :] + prefix - start).reshape(-1)
+        reordered = np.empty(N, np.int64)
+        reordered[slot] = e
+        pos = to[td[reordered]] + (e - tile * TILE)
         assert np.array_equal(np.bincount(pos, minlength=N), np.ones(N, np.int64)), \
             "a destination written twice"
         for j in range(3):
-            dst[j][pos] = src[j]
+            dst[j][pos] = src[j][reordered]
         src = dst
     return out[0], out[1], out[2], P
 
@@ -203,12 +247,13 @@ def _inputs(N):
     ]
 
 
-@pytest.mark.parametrize("G", [132, 7, 1])
-@pytest.mark.parametrize("N", [(1 << 17) + 1, (1 << 18) + 3, (1 << 19) + 5])
+@pytest.mark.parametrize("N, G", [
+    (N, G) for N in ((1 << 17) + 1, (1 << 18) + 3, (1 << 19) + 5) for G in (GRID, 7, 1)]
+    + [(10000, GRID), (32768, GRID)])
 def test_grid_schedule_equals_the_plain_sort(N, G):
-    passes, L = {}, _layout(N, G)
+    passes = {}
     for name, k1, k2, v, want in _cases(N):
-        *got, passes[name] = grid_sort3(k1, k2, v, G, L)
+        *got, passes[name] = grid_sort3(k1, k2, v, G)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w, err_msg=name)
     # the skip rule's reach: no pass, one pass, the callers' forms, all twelve
@@ -220,7 +265,7 @@ def test_grid_schedule_equals_lax_sort():
     """The emulation against the JAX package's sort (the XLA sort its
     callers run by default) on the insert's and the voxel sort's forms."""
     for name, k1, k2, v in _inputs((1 << 17) + 1)[6:]:
-        got = grid_sort3(k1, k2, v, 132)[:3]
+        got = grid_sort3(k1, k2, v, GRID)[:3]
         want = jsort.sort3(jnp.asarray(k1), jnp.asarray(k2), jnp.asarray(v))
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)

@@ -181,7 +181,10 @@ def test_the_kernel_refuses_no_element_and_a_strided_operand(monkeypatch):
         sort._launch(a[::2], a[1::2], a[::2])
     with pytest.raises(ValueError, match="int32"):
         sort._launch(a.long(), a, a)
-    assert sort.MAXN == 2 ** 31 - 1 and sort.CLUSTER_MAXN == 1 << 17
+    # the switch is the largest N measured at which the cluster kernel wins
+    # both forms on an H100 (PERF §6): 4096, a single point; the grid kernel
+    # wins both forms at 1024 (one tile) and from 10 000 up
+    assert sort.MAXN == 2 ** 31 - 1 and sort.CLUSTER_MAXN == 4096
 
 
 def test_plain_matches_lax_sort_above_the_cluster():

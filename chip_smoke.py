@@ -328,7 +328,7 @@ def _device_ms(fn, prefix=None, reps: int = 5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        ev = [e for e in prof.key_averages() if _on_device(e)]
         mine = [e for e in ev if prefix is None or _kname(e.key).startswith(prefix)]
         n = sum(e.count for e in mine)
         if ev and (prefix is None or (n and n % reps == 0)):
@@ -359,7 +359,7 @@ def _query_timing(torch, call, reps: int = 3) -> dict:
             call()
         torch.cuda.synchronize()
     stats = prof.key_averages()
-    dev = [e for e in stats if e.device_type.name == "CUDA"]
+    dev = [e for e in stats if _on_device(e)]
     host = [e for e in stats if e.device_type.name == "CPU"]
 
     def dsum(es):
@@ -380,6 +380,13 @@ def _query_line(name, t) -> str:
             f"{_fmt(t['k7_device_ms'])}, K2 {_fmt(t['k2_device_ms'])} | {t['device_ops']:.0f} "
             f"device ops, "
             f"{t['cudaLaunchKernel']:.0f} cudaLaunchKernel a call")
+
+
+def _on_device(e) -> bool:
+    """A profiler average of device work: a CUDA op, not a user annotation's
+    device range (the port's spans enter a session as ``record_function``
+    ranges, ``utils/telemetry``)."""
+    return e.device_type.name == "CUDA" and not getattr(e, "is_user_annotation", False)
 
 
 def _kname(key: str) -> str:
@@ -583,7 +590,7 @@ def _profile(torch, Localizer, cfg, stamps, acc, gyro, scans, label: str) -> Non
     prof.__exit__(None, None, None)
     n = len(scans) - WARMUP
     stats = prof.key_averages()
-    events = [e for e in stats if e.device_type.name == "CUDA"]
+    events = [e for e in stats if _on_device(e)]
     busy = sum(e.self_device_time_total for e in events)
     print(f"[smoke] profile {label}: {n} scans, device busy {busy / n / 1e3:.3f} ms/scan of "
           f"{wall_us / n / 1e3:.3f} ms/scan wall (profiled; busy share "
@@ -975,7 +982,7 @@ def _cuda_launches(torch, fn, prefix: str, tries: int = 6, reps: int = 5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        events = [e for e in prof.key_averages() if _on_device(e)]
         n = sum(e.count for e in events if _kname(e.key).startswith(prefix))
         if n:
             return n // reps if n % reps == 0 else n / reps
@@ -1744,7 +1751,7 @@ def _fleet_phase(dev, cfg, counts, zero):
             step(states, bb, on)
         torch.cuda.synchronize()
     host = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
-    dev_ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ev = [e for e in prof.key_averages() if _on_device(e)]
     n_launch = sum(e.count for e in host if e.key.startswith("cudaLaunchKernel")) / 2
     busy = sum(e.self_device_time_total for e in dev_ev) / 2 / 1e3 if dev_ev else None
     steady = np.asarray(tick_ms[1:])
@@ -2407,7 +2414,7 @@ def _wide_phase(dev, counts, zero, report, soak_slam):
         _fail(f"wide: {len(est)} poses (want {seq.n_scans}) or non-finite values")
     ate = synthetic.ate_rmse(est, seq.traj.pos(loc.stamps()))
     stats = win["prof"].key_averages()
-    dev_ev = [e for e in stats if e.device_type.name == "CUDA"]
+    dev_ev = [e for e in stats if _on_device(e)]
     busy = sum(e.self_device_time_total for e in dev_ev) / WIDE_PROFILED / 1e3 if dev_ev else None
     launches = sum(e.count for e in stats if e.device_type.name == "CPU"
                    and e.key.startswith("cudaLaunchKernel")) / WIDE_PROFILED

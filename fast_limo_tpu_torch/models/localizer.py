@@ -21,7 +21,17 @@ copied (``build_scan_step_split``).  With ``scan_chunk = C > 1`` scans
 are dispatched C at a time (``build_scan_chunk_step``, an offline replay
 knob); ``flush()`` sends the partial chunk at the end of a stream.
 ``on_dispatch(scan_pack, imu_pack)``, when set, sees the exact host bytes
-of every scan copied, on both paths, in dispatch order.
+of every scan copied, on both paths, in dispatch order.  ``pose_ready`` is
+the newest dispatch's event on the compute stream after its step: a caller
+polls ``pose_ready.query()`` instead of waiting on a copy.
+
+Tracing (``telemetry.trace(True)``, off by default; ``utils/telemetry``):
+spans ``localizer.arrive`` (a scan's validation, point times, pack and
+copy start) and ``localizer.dispatch`` (roots) with the children
+``localizer.pack`` (IMU pack, its copy, ``on_dispatch``), ``step`` (the
+step call, whose stages are spans ``step.*``: ``models/pipeline``) and
+``localizer.finish`` (eviction, retention, telemetry); each dispatch's
+``pose_ready`` and device allocations; ``telemetry.export()`` hands them out.
 
 For long sessions: per-scan outputs are copied to the host in batches and
 their device tensors released (``_bound_retention``); the map evicts far
@@ -76,10 +86,11 @@ class Localizer:
         fused kernels K6/K5 — the witness configuration."""
         self.cfg = cfg
         self.device = dispatch.resolve_device(device)
-        self.telemetry = Telemetry()
+        self.telemetry = Telemetry(device=self.device if self.device.type == "cuda" else None)
         self.chunk = max(1, int(cfg.tpu.scan_chunk))
         build = pl.build_scan_chunk_step if self.chunk > 1 else pl.build_scan_step_split
-        self.scan_step = build(cfg, self.device, split_body)
+        self.scan_step = build(cfg, self.device, split_body, spans=self.telemetry.spans)
+        self.pose_ready = None             # the newest dispatch's pose event
         # Capture hook: called as on_dispatch(scan_pack (N,4), imu_pack (K,8))
         # with the exact host bytes copied for every scan, in dispatch
         # order, on both paths.  Consumers copy what they keep.
@@ -170,6 +181,9 @@ class Localizer:
         """Queue a scan; dispatched once IMU coverage reaches its end time."""
         if not self.imu_calibrated:
             return
+        sp = self.telemetry.spans
+        sp.root("localizer.arrive", len(self._raw_outputs) + len(self._scan_queue) // self.chunk,
+                stamp)
         if not self._structure_checked:  # once, like ROSutils.hpp:152 static
             validation.check_pointcloud(points, t_raw, self.cfg.sensor_type, stamp)
             self._structure_checked = True
@@ -187,6 +201,8 @@ class Localizer:
         if self.chunk == 1:
             self._stage(scan)
         self._scan_queue.append(scan)
+        if sp.live:
+            sp.close()
         self._drain()
 
     def _drain(self) -> None:
@@ -344,20 +360,44 @@ class Localizer:
         elif self.epoch is None:
             self._anchor_epoch(first_stamp)
 
+    def _step(self, sp, *packs):
+        """The step call (span ``step``) and the dispatch's ``pose_ready``."""
+        if sp.live:
+            sp.close()
+            sp.open("step")
+        self.telemetry.scan_begin()
+        self.state, out = self.scan_step(self.state, *packs)
+        if sp.live:
+            sp.close()
+        self.pose_ready = sp.pose_event()
+        if sp.live:
+            sp.open("localizer.finish")
+        return out
+
     def _finish_dispatch(self, out, scans: List[_PendingScan], epoch) -> None:
         """Eviction, telemetry and the output entry (``epoch``: a tuple of
-        epochs for a chunked dispatch)."""
+        epochs for a chunked dispatch); ends the dispatch's spans."""
         self._maybe_evict(out.pos if self.chunk == 1 else out.pos[len(scans) - 1])
         for scan in scans:
             self.telemetry.scan_end(scan.stamp)
         self.last_output, self.last_output_scans = out, len(scans)
         self._raw_outputs.append((epoch, out))
         self._bound_retention()
+        sp = self.telemetry.spans
+        if sp.live:
+            sp.close()          # localizer.finish
+            sp.close()          # localizer.dispatch
+        if sp.on:
+            sp.dispatched(len(self._raw_outputs) - 1, scans[0].stamp, self.pose_ready)
 
     def _dispatch(self, scan: _PendingScan) -> None:
         """One scan through the split step; its payload has been copying
         since it arrived."""
+        sp = self.telemetry.spans
+        live = sp.root("localizer.dispatch", len(self._raw_outputs), scan.stamp)
         self._begin_dispatch(scan.stamp)
+        if live:
+            sp.open("localizer.pack")
         imu_pack = self._pack_imu(scan, scan.t_scale, scan.npts)
         if self.on_dispatch is not None:
             self.on_dispatch(scan.host_buf, imu_pack)
@@ -365,14 +405,18 @@ class Localizer:
             compute = torch.cuda.current_stream(self.device)
             compute.wait_event(scan.copied)
             scan.scan_buf.record_stream(compute)
-        self.telemetry.scan_begin()
-        self.state, out = self.scan_step(self.state, scan.scan_buf, self._to_device(imu_pack))
+        out = self._step(sp, scan.scan_buf, self._to_device(imu_pack))
         self._finish_dispatch(out, [scan], self.epoch)
 
     def _dispatch_chunk(self, scans: List[_PendingScan]) -> None:
         """Up to C scans through the chunk step, padded to C with inactive
         elements."""
+        sp = self.telemetry.spans
+        live = sp.root("localizer.dispatch", len(self._raw_outputs), scans[0].stamp,
+                       [scan.stamp for scan in scans])
         self._begin_dispatch(scans[0].stamp)
+        if live:
+            sp.open("localizer.pack")
         C, N, K = self.chunk, self.cfg.tpu.max_points_per_scan, self.cfg.tpu.imu_batch
         sdtype = np.int16 if self.cfg.tpu.quantize_transfer > 0 else np.float32
         scan_packs = np.zeros((C, N, 4), sdtype)
@@ -383,9 +427,7 @@ class Localizer:
             epochs.append(self.epoch)
             if self.on_dispatch is not None:
                 self.on_dispatch(scan_packs[i], imu_packs[i])
-        self.telemetry.scan_begin()
-        self.state, out = self.scan_step(self.state, self._to_device(scan_packs),
-                                         self._to_device(imu_packs))
+        out = self._step(sp, self._to_device(scan_packs), self._to_device(imu_packs))
         self._finish_dispatch(out, scans, tuple(epochs))
 
     def _bound_retention(self) -> None:
@@ -432,6 +474,7 @@ class Localizer:
             return
         self.state = self.state._replace(map=mapper.evict_far(
             self.state.map, pos, self.evict_radius, voxel_size=self.cfg.map_voxel_size))
+        self.telemetry.spans.evictions += 1
         # the probe just taken predates the eviction: the next mark probes anew
         self._evict_probe = None
 

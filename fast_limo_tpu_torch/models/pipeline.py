@@ -13,6 +13,11 @@ window re-match (K2) + iterated EKF update (K6; fallback K2-K5) → map
 insert.  Plain tensor code between the kernels, on the device the state
 lives on.  Times in the batch are relative to the scan's epoch; the host
 keeps the absolute float64 epoch (see the JAX ScanBatch docstring).
+
+Given a ``spans`` recorder (``utils/telemetry.Spans``: the Localizer's),
+the step marks its stages as spans while the recorder is live:
+``step.predict``, ``step.preprocess``, ``step.deskew``, ``step.voxel``,
+``step.update`` and ``step.insert``, one set per chunk element.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ from fast_limo_tpu_torch.models import process as proc
 from fast_limo_tpu_torch.models import state as st
 from fast_limo_tpu_torch.ops import dispatch, so3, voxel
 from fast_limo_tpu_torch.utils.config import Config
+from fast_limo_tpu_torch.utils.telemetry import Spans
+
+_NO_SPANS = Spans()       # never switched on: every stage site reads live = False
 
 
 class LIOState(NamedTuple):
@@ -124,9 +132,9 @@ def init_state(cfg: Config, device="cuda") -> LIOState:
         pinned_grav=x.grav.clone())
 
 
-def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
-                    shard_axis: str = None, num_shards: int = 1, query_axis: str = None,
-                    num_query_shards: int = 1, comm=None):
+def build_scan_step(cfg: Config, device="cuda", split_body: bool = False,
+                    spans: Spans = None, *, shard_axis: str = None, num_shards: int = 1,
+                    query_axis: str = None, num_query_shards: int = 1, comm=None):
     """The per-scan step for a static config, on ``device``.  With
     ``split_body`` the update runs the per-iteration loop around the gain
     kernel K8 every scan (``iekf.update_iterated``) instead of K6/K5.  With
@@ -140,8 +148,10 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
     insert keeps the owned points, and ``num_points`` stays the replicated
     global count (the psum of the shards' deltas).  ``query_axis``
     additionally splits the matching work over ``num_query_shards`` ranks
-    (see models/measurement.py); everything else is replicated."""
+    (see models/measurement.py); everything else is replicated.  ``spans``:
+    the recorder the stages are marked in (module docstring)."""
     device = dispatch.resolve_device(device)
+    sp = _NO_SPANS if spans is None else spans
     mp_cfg = cfg.ikfom.mapping
     voxel_size = cfg.map_voxel_size
     k = mp_cfg.NUM_MATCH_POINTS
@@ -155,6 +165,8 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
                              f32, device)
 
     def scan_step(s: LIOState, b: ScanBatch) -> Tuple[LIOState, ScanOutput]:
+        if sp.live:
+            sp.stage("step.predict")
         # ---- rebase carried times onto this scan's epoch ----
         s = s._replace(prev_scan_stamp=s.prev_scan_stamp - b.epoch_shift,
                        last_prop_time=s.last_prop_time - b.epoch_shift)
@@ -173,6 +185,8 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
         last_i = torch.clamp(n_imu - 1, min=0)
         has_imu = n_imu > 0
 
+        if sp.live:
+            sp.stage("step.preprocess")
         # ---- scan path: filters, optional time sort, offset ----
         imu_stamp_now = torch.where(has_imu, _take(b.imu_stamp, last_i), s.last_prop_time)
         pts, t_abs, pvalid, scan_end = preprocess.preprocess_scan(
@@ -185,11 +199,15 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
             fov_active=cfg.filters.fov_active, fov_angle=cfg.filters.fov_angle,
             time_offset=cfg.time_offset, time_sort=cfg.tpu.time_sort)
 
+        if sp.live:
+            sp.stage("step.deskew")
         # ---- deskew into the Xt2 frame (K1) ----
         frames = dsk.frames_from_scan(s.x, s.last_prop_time, s.last_w, s.last_a, xs, imu)
         p_xt2, _p_world = dsk.deskew(pts, t_abs, pvalid, frames, x_t2,
                                      x_t2.rot_LI, x_t2.t_LI)
 
+        if sp.live:
+            sp.stage("step.voxel")
         # ---- voxel-grid downsample ----
         if cfg.filters.voxel_active:
             pc_ds, ds_valid = voxel.voxel_downsample(p_xt2, pvalid,
@@ -202,6 +220,8 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
         pc2match = pc_ds[:n_pc2match]
         pc2_valid = ds_valid[:n_pc2match]
 
+        if sp.live:
+            sp.stage("step.update")
         # ---- iterated manifold update (certified window re-match) ----
         h_model = measurement.make_h_model(
             s.map, pc2match, pc2_valid, voxel_size=voxel_size, k=k,
@@ -222,6 +242,8 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
         x_u = st.where(do_update, x_u, x_t2)
         P_u = torch.where(do_update, P_u, P_t2)
 
+        if sp.live:
+            sp.stage("step.insert")
         # ---- register scan & grow the map (Mapper::add) ----
         if cfg.tpu.insert_population == "full":
             ins_pts, ins_valid = pc_ds, ds_valid
@@ -267,6 +289,8 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False, *,
                 gersh_min=udiag["gersh_min"], min_eig=udiag["min_eig"],
                 guard_fired=udiag["guard_fired"] & do_update, n_stale=n_stale,
                 loop_fallback=udiag["loop_fallback"] & do_update))
+        if sp.live:
+            sp.stage(None)
         return s_next, out
 
     return scan_step
@@ -346,14 +370,15 @@ def build_scan_step_packed(cfg: Config, device="cuda", split_body: bool = False)
     return packed_step
 
 
-def build_scan_step_split(cfg: Config, device="cuda", split_body: bool = False):
+def build_scan_step_split(cfg: Config, device="cuda", split_body: bool = False,
+                          spans: Spans = None):
     """The streaming step on TWO buffers: the scan payload (N,4) and the
     IMU pack (K,8) of ``build_scan_step_packed``.  The payload does not
     depend on IMU coverage, so the Localizer starts its copy to the device
     when the scan arrives, overlapping the scan in flight; only the small
     IMU pack waits for dispatch.  Same results as the packed step."""
     device = dispatch.resolve_device(device)
-    inner = build_scan_step(cfg, device, split_body)
+    inner = build_scan_step(cfg, device, split_body, spans)
     read = _pack_reader(cfg, device, 4)
 
     def split_step(s: LIOState, scan_pack, imu_pack):
@@ -378,7 +403,8 @@ def _stack(outs):
     return torch.stack(outs)
 
 
-def build_scan_chunk_step(cfg: Config, device="cuda", split_body: bool = False):
+def build_scan_chunk_step(cfg: Config, device="cuda", split_body: bool = False,
+                          spans: Spans = None):
     """Chunked replay: C scans per call, ``scan_packs (C,N,4)`` and
     ``imu_packs (C,K,8)`` in the packed layout with ``aux[4] = active``.
     The elements run in order through the per-scan step; an inactive
@@ -387,12 +413,15 @@ def build_scan_chunk_step(cfg: Config, device="cuda", split_body: bool = False):
     ``(LIOState', ScanOutput)`` with every output stacked on a leading
     chunk axis, ``n_pc2match = 0`` and ``final_valid`` False on padding."""
     device = dispatch.resolve_device(device)
-    inner = build_scan_step(cfg, device, split_body)
+    sp = _NO_SPANS if spans is None else spans
+    inner = build_scan_step(cfg, device, split_body, sp)
     read = _pack_reader(cfg, device, 5)
 
     def chunk_step(s: LIOState, scan_packs, imu_packs):
         outs = []
-        for scan_pack, imu_pack in zip(scan_packs, imu_packs):
+        for i, (scan_pack, imu_pack) in enumerate(zip(scan_packs, imu_packs)):
+            if sp.live:
+                sp.element(i)
             active = imu_pack[4, 7] > 0
             s2, out = inner(s, read(scan_pack, imu_pack))
             s = _select(active, s2, s)

@@ -66,7 +66,7 @@ with AsyncIngest(fed) as ingest:
     presets.replay(ingest, seq)
     ingest.flush()
 assert np.array_equal(fed.positions(), loc.positions())
-assert "Map points" in loc.board() and telemetry.Telemetry().stats()["scans_per_s"] == 0.0
+assert "Map points" in loc.board() and telemetry.Telemetry().stats()["enqueue_scans_per_s"] == 0.0
 k = torch.tensor([2, 0, 1], dtype=torch.int32)
 assert sort.sort3(k, k, k)[0].tolist() == [0, 1, 2] and sort.sort3.launches == 0
 q = torch.tensor(checkpoint.map_points(loc.state.map)[:16])

@@ -905,48 +905,62 @@ def _symbol_head(name: str) -> str:
     return name[m.end():m.end() + int(m.group(1))] if m else name
 
 
-def _graph_launches(torch, fn, prefix: str):
-    """(device ops, kernels named ``prefix*``) that one call of fn() puts on
-    the stream, read from the nodes of a CUDA graph captured of that call
-    (kernel, copy and set nodes; nothing runs).  Raises where the call
-    cannot be captured or the driver cannot name a node's kernel."""
+def _graph_kernels(g):
+    """(device ops, the symbol heads of its kernels) of a captured CUDA
+    graph kept with keep_graph=True, read from its nodes (kernel, copy and
+    set nodes; nothing runs).  Raises where the driver cannot name a
+    node's kernel."""
     cu = ctypes.CDLL("libcuda.so.1")
 
     def ok(rc, what):
         if rc != 0:
             raise RuntimeError(f"{what} returned {rc}")
 
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    ops, names = 0, []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int()
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value not in (0, 1, 2):   # kernel, memcpy, memset
+            continue
+        ops += 1
+        if kind.value != 0:
+            continue
+        p, name = _KernelNodeParams(), ctypes.c_char_p()
+        ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
+           "cuGraphKernelNodeGetParams")
+        if p.func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)), "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)),
+               "cuKernelGetName")
+        names.append(_symbol_head(name.value.decode()))
+    return ops, names
+
+
+def _graph_launches(torch, fn, prefix: str):
+    """(device ops, kernels named ``prefix*``) that one call of fn() puts on
+    the stream, read from the nodes of a CUDA graph captured of that call
+    (``_graph_kernels``).  Raises where the call cannot be captured or the
+    driver cannot name a node's kernel."""
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g):
         fn()
-    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
     try:
-        ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
-        nodes = (ctypes.c_void_p * n.value)()
-        ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-        ops = named = 0
-        for node in nodes[:n.value]:
-            kind = ctypes.c_int()
-            ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
-               "cuGraphNodeGetType")
-            if kind.value not in (0, 1, 2):   # kernel, memcpy, memset
-                continue
-            ops += 1
-            if kind.value != 0:
-                continue
-            p, name = _KernelNodeParams(), ctypes.c_char_p()
-            ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p)),
-               "cuGraphKernelNodeGetParams")
-            if p.func:
-                ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)), "cuFuncGetName")
-            else:
-                ok(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern)),
-                   "cuKernelGetName")
-            named += _symbol_head(name.value.decode()).startswith(prefix)
+        ops, names = _graph_kernels(g)
     finally:
         g.reset()
-    return ops, named
+    return ops, sum(n.startswith(prefix) for n in names)
 
+
+# the update stage's kernels (wrapper → the symbol prefix of its kernels)
+_STAGE_KERNELS = {"knn_rows": "fl_k2", "fit_planes_select": "fl_fit_planes",
+                  "hstats": "fl_hstats", "update_body": "fl_update_body",
+                  "update_loop": "fl_update_loop"}
 
 _COUNTED_BY = {"graph": 0, "profiler": 0}   # how each kernels-a-call check was read
 
@@ -2637,7 +2651,7 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
 
     from fast_limo_tpu_torch.models import deskew as dsk_model
-    from fast_limo_tpu_torch.models import iekf, measurement
+    from fast_limo_tpu_torch.models import graphs, iekf, measurement
     from fast_limo_tpu_torch.models import state as st
     from fast_limo_tpu_torch.models.localizer import Localizer
     from fast_limo_tpu_torch.io import synthetic
@@ -2691,14 +2705,20 @@ def main() -> None:
                   "fast_limo_tpu/ops/sort.py:98"),
     }
 
-    def counts():   # K9's grid route counted beside its total
+    registered = {f for f, _ in dispatch.counters()}
+    if registered != {w[0] for w in wrappers.values()}:
+        _fail(f"the launch counters registered with dispatch.counted "
+              f"({sorted(f.__qualname__ for f in registered)}) are not the smoke's kernel "
+              f"wrappers ({sorted(wrappers)})")
+
+    def counts():   # K9's grid route and K2's window resolves beside their totals
         return {**{k: w[0].launches for k, w in wrappers.items()},
-                "sort3_grid": sort.sort3.grid_launches}
+                "sort3_grid": sort.sort3.grid_launches,
+                "knn_rows_window": knn_rows.topk_from_table.window_launches}
 
     def zero():
-        for w in wrappers.values():
-            w[0].launches = 0
-        sort.sort3.grid_launches = 0
+        for f, name in dispatch.counters():
+            setattr(f, name, 0)
 
     # ---- 3. main path ----
     cfg = presets.kitti_like_cfg()
@@ -2749,7 +2769,6 @@ def main() -> None:
 
     def knn_capture(ptable, row_idx, nc, q, active, **kw):
         # on the main path only the window resolve goes through _launch
-        cap["n_window"] = cap.get("n_window", 0) + 1
         if cap.get("on") and "knn" not in cap:
             cap["knn"] = (ptable, row_idx, nc, q, kw)
         return orig_knn(ptable, row_idx, nc, q, active, **kw)
@@ -2767,7 +2786,15 @@ def main() -> None:
             cap["loop_out"] = out
         return out
 
+    orig_stage = graphs.StageGraph.__call__
+
+    def stage_capture(self, *a):   # the update stage's inputs (it replays as a graph)
+        if cap.get("on"):
+            cap["stage"] = (self, a)
+        return orig_stage(self, *a)
+
     loc._dispatch = dispatch_timed
+    graphs.StageGraph.__call__ = stage_capture
     measurement.make_h_model = make_capture
     dsk_model.deskew = desk_capture
     knn_rows._launch = knn_capture
@@ -2791,6 +2818,17 @@ def main() -> None:
     wall = time.perf_counter() - t0
     main_counts = counts()
     syncs, fallbacks = iekf.counters.host_syncs, iekf.counters.loop_fallbacks
+    graph_counts = loc.telemetry.spans.update_graph.export()
+    # the update stage's graph as the device replays it: its nodes
+    captured = cap["stage"][0].captured() if "stage" in cap else []
+    stage_nodes = _graph_kernels(captured[0]) if len(captured) == 1 else (0, [])
+    if "stage" in cap:   # the captured scan's update stage once more, eagerly: its kernels' inputs
+        stage, stage_args = cap["stage"]
+        cap["on"] = True
+        stage.fn(*stage_args)
+        torch.cuda.synchronize()
+        cap["on"] = False
+    graphs.StageGraph.__call__ = orig_stage
     loc._dispatch = orig_dispatch
     measurement.make_h_model = orig_make
     dsk_model.deskew = orig_deskew
@@ -2809,6 +2847,12 @@ def main() -> None:
     print(f"[smoke] main: launches {json.dumps(main_counts)} | loop fallbacks {fallbacks} "
           f"| host syncs {syncs} | n_iters {[t['n_iters'] for t in loc.trajectory]}",
           flush=True)
+    print(f"[smoke] main: the update stage's graph {json.dumps(graph_counts)}", flush=True)
+    warm = graphs.StageGraph.WARMUP
+    if graph_counts["captures"] != 1 or graph_counts["eager"] != {"warm-up": warm} \
+            or graph_counts["replays"] + warm != args.scans:
+        _fail(f"the update stage's graph ran {json.dumps(graph_counts)} in {args.scans} scans, "
+              f"not captured once and replayed after its warm-up")
     if not ate < 0.15:
         _fail(f"ATE {ate:.4f} m >= 0.15 m")
     # the exact loop's kernels launch on every scan behind their active flag,
@@ -2829,11 +2873,25 @@ def main() -> None:
               f"({main_counts['sort3_grid']} through the grid kernel), not twice a scan "
               f"with {n_grid} through the grid kernel (CLUSTER_MAXN = {sort.CLUSTER_MAXN})")
     # K2: one window resolve a scan, one select launch an evaluation
-    n_window = cap.get("n_window", 0)
-    if n_window != args.scans or main_counts["knn_rows"] != (1 + evals) * args.scans:
-        _fail(f"K2 launched {main_counts['knn_rows']} times ({n_window} window resolves) in "
-              f"{args.scans} scans, not {1 + evals} a scan (one window resolve, one select "
-              f"launch an evaluation)")
+    n_window = main_counts["knn_rows_window"]
+    n_select = main_counts["knn_rows"] - n_window
+    if n_window != args.scans or n_select != evals * args.scans:
+        _fail(f"K2 launched {n_window} window resolves and {n_select} select launches in "
+              f"{args.scans} scans, not one window resolve a scan and one select launch an "
+              f"evaluation ({evals} a scan)")
+    # what each replay of the update stage's graph runs on the device: its
+    # kernel nodes by kernel, and no other of the port's kernels
+    ops, names = stage_nodes
+    in_graph = {k: sum(n.startswith(p) for n in names) for k, p in _STAGE_KERNELS.items()}
+    want = {"knn_rows": 1 + evals, "fit_planes_select": evals, "hstats": evals,
+            "update_body": evals, "update_loop": 1}
+    others = sum(n.startswith("fl_") for n in names) - sum(in_graph.values())
+    print(f"[smoke] main: the update stage's captured graph: {ops} device ops, its kernels "
+          f"{json.dumps(in_graph)} and {others} other fl_ kernels (a replay a scan after "
+          f"the warm-up)", flush=True)
+    if in_graph != want or others:
+        _fail(f"the update stage's captured graph holds the kernels {json.dumps(in_graph)} and "
+              f"{others} other fl_ kernels, not {json.dumps(want)} (one replay a scan)")
     if syncs:
         _fail(f"the main path read the device {syncs} times (iekf.counters.host_syncs)")
     for key in ("h_model", "deskew", "knn", "loop", "loop_out", "sort"):
@@ -2982,7 +3040,7 @@ def main() -> None:
            f"{knn_rows.schedule(ridx.shape[1], kw['k'])}; device ms by schedule "
            f"{json.dumps({m: round(t, 5) if t else t for m, t in modes.items()})}; 1 CUDA "
            f"kernel a call; launches: the window resolves)",
-           launches=cap["n_window"], prefix="fl_k2")
+           launches=main_counts["knn_rows_window"], prefix="fl_k2")
     del d2_k2
 
     # K2's select entry — the exact loop's re-match at the captured scan's
@@ -3032,7 +3090,8 @@ def main() -> None:
            f"schedule {json.dumps({m: round(t, 5) if t else t for m, t in modes2.items()})}; the taken "
            f"branch bit-equal to the plain version, 1 CUDA kernel a call; launches: the select "
            f"launches)",
-           launches=main_counts["knn_rows"] - cap["n_window"], kernel="knn_rows", prefix="fl_k2")
+           launches=main_counts["knn_rows"] - main_counts["knn_rows_window"], kernel="knn_rows",
+           prefix="fl_k2")
     del d2_s
 
     # K3 — the re-match's sets at the same pose and stale marks as K2's

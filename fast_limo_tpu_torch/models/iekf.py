@@ -244,7 +244,22 @@ def _body_jnp(x: st.NavState, x_prop: st.NavState, P_prop, HTH, HTh, R, D):
 def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
                     max_iters: int, limit: float, split_body: bool = False,
                     with_diag: bool = False):
-    """Iterated dynamic-share update (esekfom.hpp:1620-1823).
+    """Iterated dynamic-share update (esekfom.hpp:1620-1823): ``update_core``
+    with K6's fallback flag counted in ``counters``.  Returns (x', P',
+    n_iters), with ``with_diag`` also the diagnostics (see ``update_core``)."""
+    x_u, P_u, n_it, need, diag = update_core(x, P, h_model, R, D, max_iters, limit,
+                                             split_body, with_diag)
+    if need is not None:
+        counters.add_fallbacks(need)
+    return (x_u, P_u, n_it, diag) if with_diag else (x_u, P_u, n_it)
+
+
+def update_core(x: st.NavState, P, h_model, R: float, D: float,
+                max_iters: int, limit: float, split_body: bool = False,
+                with_diag: bool = False):
+    """The iterated update of ``update_iterated`` without counting K6's
+    fallbacks: on the fused body a function of tensors, which a CUDA graph
+    can capture (the split body's guard reads the device).
 
     ``h_model.stats(x, active) -> (HᵀH, Hᵀh)`` re-matches at the iterate.
     With a window pack (``h_model.loop_pack``) the whole loop is ONE K6
@@ -254,12 +269,13 @@ def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
     ``torch.where(ok, K6's, the loop's)``: nothing is read on the host.
     With ``split_body`` the per-iteration loop runs for every scan with
     ``_body_jnp`` (K8) as its body and K5/K6 never launch.  Returns (x',
-    P', n_iters); with ``with_diag`` additionally ``{"gersh_min",
-    "min_eig", "guard_fired", "loop_fallback"}``: the minimum Gershgorin
-    bound on HᵀH's pose block and its exact minimum eigenvalue over the
-    iterations (+inf where the split body's bound certified it ≥ D),
-    whether the degeneracy guard zeroed directions, and whether K6's
-    certificates failed (``need`` itself).
+    P', n_iters, need, diag): ``need`` is K6's fallback flag (() bool; None
+    without a window pack), ``diag`` None unless ``with_diag``, then
+    ``{"gersh_min", "min_eig", "guard_fired", "loop_fallback"}``: the
+    minimum Gershgorin bound on HᵀH's pose block and its exact minimum
+    eigenvalue over the iterations (+inf where the split body's bound
+    certified it ≥ D), whether the degeneracy guard zeroed directions, and
+    whether K6's certificates failed (``need`` itself).
     """
     from fast_limo_tpu_torch.ops import update_body, update_loop
 
@@ -276,7 +292,6 @@ def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
             estimate_extrinsics=h_model.estimate_extrinsics,
             window=h_model.loop_window)
         need = ~ok
-        counters.add_fallbacks(need)
 
     # exact per-iteration loop: i = −1 … max_iters−1 (max_iters+1 bodies),
     # finished iterations are masked exactly like the JAX unrolled loop
@@ -314,4 +329,4 @@ def update_iterated(x: st.NavState, P, h_model, R: float, D: float,
         if with_diag:
             g_min, me_min = torch.where(ok, g_k, g_min), torch.where(ok, me_k, me_min)
         fb = need
-    return (*out, diag(g_min, me_min, fb)) if with_diag else out
+    return (*out, need, diag(g_min, me_min, fb) if with_diag else None)

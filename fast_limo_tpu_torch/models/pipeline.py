@@ -18,6 +18,12 @@ Given a ``spans`` recorder (``utils/telemetry.Spans``: the Localizer's),
 the step marks its stages as spans while the recorder is live:
 ``step.predict``, ``step.preprocess``, ``step.deskew``, ``step.voxel``,
 ``step.update`` and ``step.insert``, one set per chunk element.
+
+The update stage (the window resolve, K6 and the exact loop behind its
+flag, the null-iteration select) is one function of tensors, run through
+``graphs.StageGraph``: on CUDA tensors with the fused body, no shard or
+query axis and no ``cfg.debug``, it replays as one captured CUDA graph;
+the recorder's ``update_graph`` counts how it ran.
 """
 
 from __future__ import annotations
@@ -28,14 +34,12 @@ import numpy as np
 import torch
 
 from fast_limo_tpu_torch.models import deskew as dsk
-from fast_limo_tpu_torch.models import iekf, mapper, measurement, preprocess
+from fast_limo_tpu_torch.models import graphs, iekf, mapper, measurement, preprocess
 from fast_limo_tpu_torch.models import process as proc
 from fast_limo_tpu_torch.models import state as st
 from fast_limo_tpu_torch.ops import dispatch, so3, voxel
 from fast_limo_tpu_torch.utils.config import Config
 from fast_limo_tpu_torch.utils.telemetry import Spans
-
-_NO_SPANS = Spans()       # never switched on: every stage site reads live = False
 
 
 class LIOState(NamedTuple):
@@ -149,9 +153,11 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False,
     global count (the psum of the shards' deltas).  ``query_axis``
     additionally splits the matching work over ``num_query_shards`` ranks
     (see models/measurement.py); everything else is replicated.  ``spans``:
-    the recorder the stages are marked in (module docstring)."""
+    the recorder the stages are marked in and the update stage's graph
+    counted in (module docstring; without one, a recorder of its own that
+    is never switched on)."""
     device = dispatch.resolve_device(device)
-    sp = _NO_SPANS if spans is None else spans
+    sp = Spans() if spans is None else spans
     mp_cfg = cfg.ikfom.mapping
     voxel_size = cfg.map_voxel_size
     k = mp_cfg.NUM_MATCH_POINTS
@@ -163,6 +169,43 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False,
     Q = proc.process_noise_Q(cfg.ikfom.cov_gyro, cfg.ikfom.cov_acc,
                              cfg.ikfom.cov_bias_gyro, cfg.ikfom.cov_bias_acc,
                              f32, device)
+
+    def update(m: mapper.VoxelHashMap, pc2match, pc2_valid, x_t2: st.NavState, P_t2):
+        """The update stage as a function of tensors: (x_u, P_u, n_iters,
+        need, do_update, debug); ``need`` is K6's fallback flag (None
+        without a window pack), ``debug`` None unless ``cfg.debug``, then
+        (the update's diagnostics, ``h_model.debug(x_u)``)."""
+        h_model = measurement.make_h_model(
+            m, pc2match, pc2_valid, voxel_size=voxel_size, k=k,
+            max_dist_plane=mp_cfg.MAX_DIST_PLANE,
+            plane_threshold=mp_cfg.PLANE_THRESHOLD,
+            max_num_matches=mp_cfg.MAX_NUM_MATCHES,
+            estimate_extrinsics=cfg.ikfom.estimate_extrinsics, x0=x_t2,
+            dynamic_gate=mp_cfg.DYNAMIC_GATE, shard_axis=shard_axis, num_shards=num_shards,
+            query_axis=query_axis, num_query_shards=num_query_shards, comm=comm)
+        x_u, P_u, n_iters, need, udiag = iekf.update_core(
+            x_t2, P_t2, h_model, R=cfg.ikfom.lidar_noise,
+            D=cfg.ikfom.degeneracy_thresh, max_iters=cfg.ikfom.MAX_NUM_ITERS,
+            limit=cfg.ikfom.LIMITS, split_body=split_body, with_diag=cfg.debug)
+
+        # NULL ITERATION (Localizer.cpp:323,379-380): a select, not a branch
+        do_update = torch.sum(pc2_valid) > 1
+        x_u = st.where(do_update, x_u, x_t2)
+        P_u = torch.where(do_update, P_u, P_t2)
+        debug = (udiag, h_model.debug(x_u)) if cfg.debug else None
+        return x_u, P_u, n_iters, need, do_update, debug
+
+    def eager_reason():
+        """Why the update cannot be captured, from what the step runs."""
+        if split_body:
+            return "split_body"       # the guard reads the device
+        if shard_axis is not None or query_axis is not None or comm is not None:
+            return "sharded"          # collectives between the kernels
+        if cfg.debug:
+            return "debug"            # h_model is read after the update
+        return None
+
+    run_update = graphs.StageGraph(update, sp.update_graph, eager_reason)
 
     def scan_step(s: LIOState, b: ScanBatch) -> Tuple[LIOState, ScanOutput]:
         if sp.live:
@@ -223,24 +266,10 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False,
         if sp.live:
             sp.stage("step.update")
         # ---- iterated manifold update (certified window re-match) ----
-        h_model = measurement.make_h_model(
-            s.map, pc2match, pc2_valid, voxel_size=voxel_size, k=k,
-            max_dist_plane=mp_cfg.MAX_DIST_PLANE,
-            plane_threshold=mp_cfg.PLANE_THRESHOLD,
-            max_num_matches=mp_cfg.MAX_NUM_MATCHES,
-            estimate_extrinsics=cfg.ikfom.estimate_extrinsics, x0=x_t2,
-            dynamic_gate=mp_cfg.DYNAMIC_GATE, shard_axis=shard_axis, num_shards=num_shards,
-            query_axis=query_axis, num_query_shards=num_query_shards, comm=comm)
-        upd = iekf.update_iterated(
-            x_t2, P_t2, h_model, R=cfg.ikfom.lidar_noise,
-            D=cfg.ikfom.degeneracy_thresh, max_iters=cfg.ikfom.MAX_NUM_ITERS,
-            limit=cfg.ikfom.LIMITS, split_body=split_body, with_diag=cfg.debug)
-        x_u, P_u, n_iters = upd[:3]
-
-        # NULL ITERATION (Localizer.cpp:323,379-380): a select, not a branch
-        do_update = torch.sum(pc2_valid) > 1
-        x_u = st.where(do_update, x_u, x_t2)
-        P_u = torch.where(do_update, P_u, P_t2)
+        x_u, P_u, n_iters, need, do_update, debug = run_update(
+            s.map, pc2match, pc2_valid, x_t2, P_t2)
+        if need is not None:
+            iekf.counters.add_fallbacks(need)
 
         if sp.live:
             sp.stage("step.insert")
@@ -279,9 +308,8 @@ def build_scan_step(cfg: Config, device="cuda", split_body: bool = False,
             final_scan=w_scan, final_valid=ins_valid & do_update,
             scan_body=ins_pts, n_iters=n_iters, n_deskewed=torch.sum(pvalid),
             n_pc2match=torch.sum(pc2_valid), scan_stamp=scan_end)
-        if cfg.debug:
-            udiag = upd[3]
-            n_abcd, keep, dist, n_stale = h_model.debug(x_u)
+        if debug is not None:
+            udiag, (n_abcd, keep, dist, n_stale) = debug
             out = out._replace(debug=DebugOutput(
                 orig_points=pts, orig_valid=pvalid,
                 deskewed=p_xt2, deskewed_valid=pvalid,
@@ -413,7 +441,7 @@ def build_scan_chunk_step(cfg: Config, device="cuda", split_body: bool = False,
     ``(LIOState', ScanOutput)`` with every output stacked on a leading
     chunk axis, ``n_pc2match = 0`` and ``final_valid`` False on padding."""
     device = dispatch.resolve_device(device)
-    sp = _NO_SPANS if spans is None else spans
+    sp = Spans() if spans is None else spans
     inner = build_scan_step(cfg, device, split_body, sp)
     read = _pack_reader(cfg, device, 5)
 

@@ -171,4 +171,4 @@ def deskew(points, t_pts, valid, frames, x_last_rot, x_last_pos, q_ext, t_ext):
                    t_ext.contiguous())
 
 
-deskew.launches = 0
+dispatch.counted(deskew)

@@ -148,6 +148,25 @@ def library():
     return _lib
 
 
+_COUNTED = {}   # "module.name" → (wrapper, its counter attributes)
+
+
+def counted(fn, *more):
+    """Register the kernel wrapper ``fn``, which counts its launches in
+    ``fn.launches`` (and a part of them in each attribute named in
+    ``more``); sets them to 0.  A module imported again registers anew."""
+    names = ("launches", *more)
+    for name in names:
+        setattr(fn, name, 0)
+    _COUNTED[f"{fn.__module__}.{fn.__qualname__}"] = (fn, names)
+    return fn
+
+
+def counters():
+    """(wrapper, attribute) of every launch counter registered with ``counted``."""
+    return [(fn, name) for fn, names in _COUNTED.values() for name in names]
+
+
 def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 

@@ -125,4 +125,4 @@ def gain(HTH, HTh, P, R):
     return _launch(HTH, HTh, P, R)
 
 
-gain.launches = 0
+dispatch.counted(gain)

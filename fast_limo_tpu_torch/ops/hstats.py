@@ -123,4 +123,4 @@ def hstats(X, sc, *, estimate_extrinsics: bool, active=None):
                    estimate_extrinsics=estimate_extrinsics)
 
 
-hstats.launches = 0
+dispatch.counted(hstats)

@@ -119,7 +119,7 @@ def masked_topk(cand_pts, cand_valid, queries, *, k: int):
                    queries.to(torch.float32).contiguous(), k=k)
 
 
-masked_topk.launches = 0
+dispatch.counted(masked_topk)
 
 
 def _launch_table(ptable, row_idx, ncb, queries, *, E: int, B: int, k: int):
@@ -159,4 +159,4 @@ def masked_topk_from_table(ptable, row_idx, ncb, queries, *, E: int, B: int, k: 
                          E=E, B=B, k=k)
 
 
-masked_topk_from_table.launches = 0
+dispatch.counted(masked_topk_from_table)

@@ -130,6 +130,7 @@ def _run(ptable, row_idx, nc, queries, active, viol, idx, *, E: int, B: int, k: 
         *(None if t is None else dispatch.ptr(t) for t in patch), dispatch.stream())
     dispatch.check(err, "knn_rows")
     topk_from_table.launches += 1
+    topk_from_table.window_launches += int(viol is None)
     return patch, full
 
 
@@ -151,8 +152,9 @@ def topk_from_table(ptable, row_idx, nc, queries, *, E: int, B: int, k: int, act
                    E=E, B=B, k=k)
 
 
-# One count for the kernel: both entries add to it.
-topk_from_table.launches = 0
+# One count for the kernel: both entries add to it; the launches without a
+# select patch (the window resolves) are counted apart as well.
+dispatch.counted(topk_from_table, "window_launches")
 
 
 def topk_from_table_select(ptable, row_idx, nc, queries, idx, viol, *, E: int, B: int, k: int,

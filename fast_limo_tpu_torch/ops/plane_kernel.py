@@ -167,7 +167,7 @@ def fit_planes(nbrs, sq_dists, nbr_valid, *, num_match_points: int,
                    nbr_valid.contiguous(), active, **kw)
 
 
-fit_planes.launches = 0
+dispatch.counted(fit_planes)
 
 
 def merge_fits(fit_w, fit_p, fit_f, idx, stale, viol):
@@ -244,4 +244,4 @@ def fit_planes_select(win, patch, idx, stale, full, viol, *, num_match_points: i
                           viol.contiguous(), active, **kw)
 
 
-fit_planes_select.launches = 0
+dispatch.counted(fit_planes_select)

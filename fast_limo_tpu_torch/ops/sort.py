@@ -105,8 +105,7 @@ def sort3(k1, k2, v):
     return _launch(k1, k2, v)
 
 
-sort3.launches = 0
-sort3.grid_launches = 0
+dispatch.counted(sort3, "grid_launches")
 
 
 def sort_key_val(key, val):

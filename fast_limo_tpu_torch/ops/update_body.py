@@ -124,4 +124,4 @@ def update_body(HTH, HTh, P, x: st.NavState, x_prop: st.NavState, R, D, active=N
                    x_prop, R, D, active)
 
 
-update_body.launches = 0
+dispatch.counted(update_body)

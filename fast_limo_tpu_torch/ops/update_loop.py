@@ -258,4 +258,4 @@ def update_loop(X, P, x_prop: st.NavState, R, D, limit, *, max_iters: int,
     return out + (aux,) if with_aux else out
 
 
-update_loop.launches = 0
+dispatch.counted(update_loop)

@@ -16,7 +16,9 @@ a span site then costs one attribute check (``Spans.live``), and the two
 root sites of a scan a call that also asks whether a ``torch.profiler``
 session records: while one does, every span enters the trace as a
 ``record_function`` range, switched on or not.  ``Telemetry.export()``
-hands out what was recorded as plain JSON types.
+hands out what was recorded as plain JSON types.  ``GraphCounts`` counts,
+always, how the step's update stage ran: replayed as a CUDA graph, or
+eagerly and why.
 """
 
 from __future__ import annotations
@@ -98,6 +100,24 @@ class Ready:
         pass
 
 
+class GraphCounts:
+    """How a step's captured stage ran (``models/graphs.StageGraph``):
+    ``captures``, ``replays``, and ``eager`` calls by reason ("warm-up"
+    before a capture; "cpu", "split_body", "sharded" or "debug" where the
+    call cannot be captured)."""
+
+    def __init__(self):
+        self.captures = 0
+        self.replays = 0
+        self.eager = {}
+
+    def eager_call(self, reason: str) -> None:
+        self.eager[reason] = self.eager.get(reason, 0) + 1
+
+    def export(self) -> dict:
+        return {"captures": self.captures, "replays": self.replays, "eager": dict(self.eager)}
+
+
 class Spans:
     """Spans and counters of the dispatch path (see the module docstring).
 
@@ -119,6 +139,7 @@ class Spans:
         self.on = False               # the switch: rows, events and counters
         self.live = False             # read at every span site: on, or profiled
         self.evictions = 0            # map evictions that freed (always counted)
+        self.update_graph = GraphCounts()   # the update stage's graph (always counted)
         self._tls = threading.local()
         self._lock = threading.Lock()
         self._clear()
@@ -367,13 +388,15 @@ class Telemetry:
 
     def export(self) -> dict:
         """The recorder's spans, dispatches and anchor (``Spans.export``)
-        and the counters: evictions, and ``iekf.counters`` (its device
-        count read here, one sync)."""
+        and the counters: evictions, the update stage's graph
+        (``GraphCounts``) and ``iekf.counters`` (its device count read
+        here, one sync)."""
         from fast_limo_tpu_torch.models import iekf
 
         out = self.spans.export()
         c = iekf.counters
         out["counters"] = {"evictions": self.spans.evictions,
+                           "update_graph": self.spans.update_graph.export(),
                            "loop_fallbacks": c.loop_fallbacks,
                            "host_syncs": c.host_syncs, "guard_eighs": c.guard_eighs}
         return out
@@ -451,6 +474,9 @@ class Telemetry:
             row(f"Pose latency:: {s['pose_ms']:7.2f} ms  // Avg: "
                 f"{s['pose_ms_mean']:7.2f} / Max: {s['pose_ms_max']:7.2f}")
         row(f"Evictions   :: {s['evictions']}")
+        g = self.spans.update_graph
+        eager = ", ".join(f"{k} {v}" for k, v in sorted(g.eager.items())) or "0"
+        row(f"Update graph:: {g.captures} captured, {g.replays} replays, eager {eager}")
         row(f"Host :: {self.cpu_model[:40]} x{self.n_cores}")
         row(f"CPU Load :: {s['cpu_pct']:5.1f} % // Max: {s['cpu_pct_max']:5.1f} %"
             f"   RAM :: {s['ram_gb']:.2f} GB")

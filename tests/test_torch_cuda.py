@@ -40,7 +40,11 @@ changed (``tests/data/torch_k6_cluster_golden.npz``; ``--write-cluster-golden
 launches at every branch code.  Also: the Localizer lands on
 the card by default, a checkpoint round trip on the card, and the split
 transfer (payload copied on a side stream at arrival) gives the
-trajectory of synchronous copies bit for bit.
+trajectory of synchronous copies bit for bit.  The update stage replayed
+as one CUDA graph (``models/graphs.StageGraph``) gives the eager stage's
+states and outputs bit for bit over 24 scans — one scan a dispatch, four,
+and two sessions through the batched step, with an eviction mid-drive —
+captures once, and counts a replay's kernels in their wrappers.
 """
 
 import os
@@ -1020,6 +1024,141 @@ def test_k3_select_is_the_merge_of_three_launches(scan):
             win, patch, idx, stale, full, viol, **kw, active=f))
         torch.cuda.synchronize()
     assert all(torch.equal(g, w) for g, w in zip(out, got))   # a set flag: the bits of none
+
+
+def _graph_cfg():
+    cfg = presets.kitti_like_cfg()
+    cfg.tpu.max_points_per_scan = 4096
+    cfg.tpu.map_capacity = 16384
+    cfg.ikfom.mapping.MAX_NUM_PC2MATCH = 1500
+    cfg.tpu.max_insert_points = 1500
+    return cfg
+
+
+def _bits(a, b, what):
+    from torch.utils import _pytree as pytree
+
+    from fast_limo_tpu_torch.models import graphs
+
+    la, lb = (graphs._tensors(pytree.tree_leaves(t)) for t in (a, b))
+    assert len(la) == len(lb), what
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and torch.equal(x, y), (what, i)
+
+
+def _graph_drive(setup, eager):
+    """24 scans through one step in ``setup`` ("one scan", "chunk 4",
+    "batched": two sessions interleaved through one ``inner``), the update
+    stage replayed as a graph or (``eager``) run eagerly; returns (states,
+    outputs, update_graph counts, fallbacks, the stage's (output, copy
+    taken when it returned) pairs, evictions)."""
+    from fast_limo_tpu_torch.models import graphs
+    from fast_limo_tpu_torch.models import pipeline as pl
+    from fast_limo_tpu_torch.models.localizer import Localizer
+    from fast_limo_tpu_torch.parallel import batched
+    from fast_limo_tpu_torch.utils.telemetry import Spans
+
+    cfg, seq = _graph_cfg(), presets.bench_sequence(n_scans=24, points_per_scan=4096)
+    call, held, rec = graphs.StageGraph.__call__, [], Spans()
+
+    def watched(self, *a):
+        out = self.fn(*a) if eager else call(self, *a)
+        held.append((out, graphs._clone(out)))
+        return out
+
+    graphs.StageGraph.__call__ = watched
+    fb0 = iekf.counters.loop_fallbacks
+    try:
+        if setup == "batched":
+            caps = [[], []]
+            for i, c in enumerate(caps):
+                loc = Localizer(cfg, device="cuda")
+                loc.on_dispatch = lambda sp, ip, c=c: c.append(
+                    batched.batch_from_packs(cfg, sp, ip, "cuda"))
+                presets.replay(loc, presets.bench_sequence(seed=7 + i, n_scans=12,
+                                                           points_per_scan=4096))
+            build, pl.build_scan_step = pl.build_scan_step, (
+                lambda *a, **kw: build(*a, **{**kw, "spans": rec}))
+            try:
+                step = batched.build_batched_scan_step(cfg, "cuda")
+            finally:
+                pl.build_scan_step = build
+            held.clear()
+            fb0 = iekf.counters.loop_fallbacks
+            states = batched.init_batched_state(cfg, 2, "cuda")
+            on = torch.ones(2, dtype=torch.bool, device="cuda")
+            outs = []
+            for k in range(12):
+                states, out = step(states, batched.stack_batches([caps[0][k], caps[1][k]]), on)
+                outs.append(out)
+            counts, evictions = rec.update_graph.export(), 0
+        else:
+            cfg.tpu.scan_chunk = 4 if setup == "chunk 4" else 1
+            loc, seen, freed = Localizer(cfg, device="cuda"), [0], []
+
+            def evict_mid_drive(scan_pack, imu_pack):   # before the 12th scan's step
+                seen[0] += 1
+                if seen[0] == 12:
+                    m = loc.state.map
+                    m2 = mapper.evict_far(m, loc.state.x.pos, 20.0,
+                                          voxel_size=cfg.map_voxel_size)
+                    freed.append(int(m.num_points) - int(m2.num_points))
+                    loc.state = loc.state._replace(map=m2)
+
+            loc.on_dispatch = evict_mid_drive
+            presets.replay(loc, seq)
+            loc.flush()
+            states, outs = loc.state, [o for _, o in loc._raw_outputs]
+            counts = loc.telemetry.export()["counters"]["update_graph"]
+            evictions = len(freed) if freed and freed[0] > 0 else 0
+        torch.cuda.synchronize()
+    finally:
+        graphs.StageGraph.__call__ = call
+    return states, outs, counts, iekf.counters.loop_fallbacks - fb0, held, evictions
+
+
+@pytest.mark.parametrize("setup", ["one scan", "chunk 4", "batched"])
+def test_update_graph_bit_equal_to_eager(dev, setup):
+    """The update stage replayed as one CUDA graph gives the eager stage's
+    states and outputs bit for bit over a 24-scan drive (with an eviction
+    that replaces the map's tensors in the middle of it in the Localizer
+    setups); it captures once and replays every call after the warm-up;
+    no output it returned changes when a later call replays."""
+    g_state, g_outs, g_counts, g_fb, g_held, g_ev = _graph_drive(setup, eager=False)
+    e_state, e_outs, _, e_fb, _, _ = _graph_drive(setup, eager=True)
+    _bits(g_state, e_state, "state")
+    assert len(g_outs) == len(e_outs)
+    for i, (a, b) in enumerate(zip(g_outs, e_outs)):
+        _bits(a, b, f"output {i}")
+    assert g_fb == e_fb
+    for i, (out, copy) in enumerate(g_held):
+        _bits(out, copy, f"stage call {i}")
+    from fast_limo_tpu_torch.models import graphs
+
+    calls = len(g_held)
+    assert calls == 24
+    assert g_counts == {"captures": 1, "replays": calls - graphs.StageGraph.WARMUP,
+                        "eager": {"warm-up": graphs.StageGraph.WARMUP}}
+    assert setup == "batched" or g_ev >= 1
+
+
+def test_update_graph_counts_its_kernels(dev):
+    """A replay counts the stage's kernels in their wrappers' launch
+    counters, as the eager stage does; the capture counts none."""
+    from fast_limo_tpu_torch.models.localizer import Localizer
+
+    names = (knn_rows.topk_from_table, plane_kernel.fit_planes_select, hstats.hstats,
+             update_body.update_body, update_loop.update_loop)
+    cfg = _graph_cfg()
+    n0 = [f.launches for f in names]
+    w0 = knn_rows.topk_from_table.window_launches
+    loc = Localizer(cfg, device="cuda")
+    presets.replay(loc, presets.bench_sequence(n_scans=6, points_per_scan=4096))
+    evals = cfg.ikfom.MAX_NUM_ITERS + 1
+    got = [f.launches - n for f, n in zip(names, n0)]
+    assert got == [6 * (1 + evals), 6 * evals, 6 * evals, 6 * evals, 6]
+    assert knn_rows.topk_from_table.window_launches - w0 == 6
+    assert loc.telemetry.export()["counters"]["update_graph"]["replays"] == 4
 
 
 if __name__ == "__main__":

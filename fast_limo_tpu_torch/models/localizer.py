@@ -32,6 +32,10 @@ copy start) and ``localizer.dispatch`` (roots) with the children
 step call, whose stages are spans ``step.*``: ``models/pipeline``) and
 ``localizer.finish`` (eviction, retention, telemetry); each dispatch's
 ``pose_ready`` and device allocations; ``telemetry.export()`` hands them out.
+A sweep larger than the scan slots is stride-downsampled on the host inside
+the span that packs its payload (``localizer.arrive``, or ``localizer.pack``
+on the chunked path), in a child span ``localizer.downsample``, and counted
+always (``telemetry.spans.downsample_scans`` and ``downsample_points_in``).
 
 For long sessions: per-scan outputs are copied to the host in batches and
 their device tensors released (``_bound_retention``); the map evicts far
@@ -240,8 +244,15 @@ class Localizer:
         N = self.cfg.tpu.max_points_per_scan
         npts = len(scan.points)
         if npts > N:   # uniform stride-downsample overflowing scans
+            sp = self.telemetry.spans
+            sp.downsample_scans += 1
+            sp.downsample_points_in += npts
+            if sp.live:
+                sp.open("localizer.downsample")
             sel = np.linspace(0, npts - 1, N).astype(np.int64)
             pts, traw, npts = scan.points[sel], scan.t_raw[sel], N
+            if sp.live:
+                sp.close()
         else:
             pts, traw = scan.points, scan.t_raw
         quant = float(self.cfg.tpu.quantize_transfer)

@@ -18,7 +18,9 @@ session records: while one does, every span enters the trace as a
 ``record_function`` range, switched on or not.  ``Telemetry.export()``
 hands out what was recorded as plain JSON types.  ``GraphCounts`` counts,
 always, how the step's update stage ran: replayed as a CUDA graph, or
-eagerly and why.
+eagerly and why.  ``Spans.downsample_scans`` and ``downsample_points_in``
+count, always, the sweeps larger than the scan slots that the host
+stride-downsampled and their returns.
 """
 
 from __future__ import annotations
@@ -140,6 +142,8 @@ class Spans:
         self.live = False             # read at every span site: on, or profiled
         self.evictions = 0            # map evictions that freed (always counted)
         self.update_graph = GraphCounts()   # the update stage's graph (always counted)
+        self.downsample_scans = 0       # sweeps over the slots, stride-cut (always counted)
+        self.downsample_points_in = 0   # their returns (always counted)
         self._tls = threading.local()
         self._lock = threading.Lock()
         self._clear()
@@ -389,14 +393,16 @@ class Telemetry:
     def export(self) -> dict:
         """The recorder's spans, dispatches and anchor (``Spans.export``)
         and the counters: evictions, the update stage's graph
-        (``GraphCounts``) and ``iekf.counters`` (its device count read
-        here, one sync)."""
+        (``GraphCounts``), the downsampled sweeps and their returns, and
+        ``iekf.counters`` (its device count read here, one sync)."""
         from fast_limo_tpu_torch.models import iekf
 
         out = self.spans.export()
         c = iekf.counters
         out["counters"] = {"evictions": self.spans.evictions,
                            "update_graph": self.spans.update_graph.export(),
+                           "downsample": {"scans": self.spans.downsample_scans,
+                                          "points_in": self.spans.downsample_points_in},
                            "loop_fallbacks": c.loop_fallbacks,
                            "host_syncs": c.host_syncs, "guard_eighs": c.guard_eighs}
         return out
@@ -477,6 +483,8 @@ class Telemetry:
         g = self.spans.update_graph
         eager = ", ".join(f"{k} {v}" for k, v in sorted(g.eager.items())) or "0"
         row(f"Update graph:: {g.captures} captured, {g.replays} replays, eager {eager}")
+        row(f"Downsample  :: {self.spans.downsample_scans} sweeps cut, "
+            f"{self.spans.downsample_points_in} points in")
         row(f"Host :: {self.cpu_model[:40]} x{self.n_cores}")
         row(f"CPU Load :: {s['cpu_pct']:5.1f} % // Max: {s['cpu_pct_max']:5.1f} %"
             f"   RAM :: {s['ram_gb']:.2f} GB")

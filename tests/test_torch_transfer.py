@@ -9,7 +9,8 @@ precedes, in both packages alike).
   ``build_scan_step`` takes (tests/test_pipeline.py:145-204), and their
   dequantized int16 points equal the JAX split/packed steps' bit for bit;
 - the port Localizer's int16 packs equal the JAX Localizer's on the same
-  scans;
+  scans, also on ring sweeps larger than the slots (stride-downsampled on
+  the host) at C = 1 and C = 4;
 - chunked replay (C = 4, 11 scans: the last chunk is partial, sent by
   ``flush()``) equals the one-scan path bit for bit (the same steps in the
   same order on the CPU), and ``on_dispatch`` fires once a scan on both
@@ -56,11 +57,24 @@ def _cfg(cls, quant=QUANT, chunk=1):
     return cfg
 
 
+def _stream(seq):
+    stamps, acc, gyro = seq.imu_stream()
+    return seq, stamps, acc, gyro, [seq.scan(i) for i in range(seq.n_scans)]
+
+
 @pytest.fixture(scope="module")
 def stream():
-    seq = presets.bench_sequence(seed=7, n_scans=N_SCANS, points_per_scan=512)
-    stamps, acc, gyro = seq.imu_stream()
-    return seq, stamps, acc, gyro, [seq.scan(i) for i in range(N_SCANS)]
+    return _stream(presets.bench_sequence(seed=7, n_scans=N_SCANS, points_per_scan=512))
+
+
+@pytest.fixture(scope="module")
+def oversize():
+    """Six ring sweeps of 1 500 returns on 16 rings (the HDL-64E's field of
+    view, azimuth-coupled firing times) for 512 slots."""
+    return _stream(synthetic.SyntheticSequence(
+        seed=5, n_scans=6, points_per_scan=1500, noise_pt=0.01, noise_gyro=5e-4,
+        noise_acc=5e-3, traj=synthetic.Trajectory(v_forward=15.0, yaw_amp=0.5),
+        ring_beams=16, beam_fov=(-0.4346, 0.0349)))
 
 
 def _replay(loc, stream):
@@ -90,14 +104,23 @@ def runs(stream):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_packs(stream):
-    """The packs the JAX Localizer dispatches for the same stream (its scan
-    step stubbed out: only the packing is compared)."""
+def _jax_replay(stream):
+    """The packs the JAX Localizer dispatches for ``stream`` (its scan step
+    stubbed out: only the packing is compared)."""
     jl = JLocalizer(_cfg(JConfig))
     stub = jpl.ScanOutput(*([jnp.zeros(3)] * 10))
     jl.scan_step = lambda s, scan_buf, imu_pack: (s, stub)
     return _replay(jl, stream)
+
+
+@pytest.fixture(scope="module")
+def jax_packs(stream):
+    return _jax_replay(stream)
+
+
+@pytest.fixture(scope="module")
+def jax_oversize_packs(oversize):
+    return _jax_replay(oversize)
 
 
 def _random_packs(cfg, rng, quant):
@@ -202,6 +225,24 @@ def test_int16_packs_match_jax_localizer(runs, jax_packs):
         assert s1.dtype == s2.dtype == np.int16
         np.testing.assert_array_equal(s1, s2)
         np.testing.assert_array_equal(i1, i2)
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_oversize_packs_match_jax_localizer(oversize, jax_oversize_packs, chunk):
+    """Every sweep overflows the slots, so each pack is the host's stride
+    selection of its sweep, packed to int16: bit for bit the JAX
+    Localizer's, on the one-scan and the chunked path."""
+    scans = oversize[4]
+    n_slots = _cfg(Config).tpu.max_points_per_scan
+    assert all(len(pts) > n_slots for _, pts, _ in scans)
+    loc = Localizer(_cfg(Config, chunk=chunk), device="cpu")
+    got = _replay(loc, oversize)
+    assert len(got) == len(jax_oversize_packs) == len(scans)
+    for (s1, i1), (s2, i2) in zip(got, jax_oversize_packs):
+        assert s1.dtype == s2.dtype == np.int16
+        np.testing.assert_array_equal(s1, s2)
+        np.testing.assert_array_equal(i1, i2)
+    assert loc.telemetry.spans.downsample_scans == len(scans)
 
 
 def test_chunked_replay_matches_single(runs):

@@ -232,14 +232,10 @@ Phases (each prints its own lines):
                   WIDE_PROFILED profiled scans cudaLaunchKernel and device
                   busy a scan, and the peak memory;
               (b) K9 on (a)'s captured voxel and insert sorts, and on seeded
-                  sorts at the switch (sort.CLUSTER_MAXN, the cluster
-                  kernel) and one above it in both forms, and at 2^17 + 1,
-                  2^20 and 2^22 (the grid kernel): all three outputs
-                  bit-equal to sort3_plain, one CUDA kernel a call, with
-                  both torch.sort yardsticks; full-range triples bit-equal
-                  at each N; then both routes timed at K9_CROSSOVER_N in
-                  both forms, each held bit-equal, and the crossover table
-                  that the switch was set from printed;
+                  sorts of two tiles (4096) in both forms and at 2^17 + 1,
+                  2^20 and 2^22: all three outputs bit-equal to
+                  sort3_plain, one CUDA kernel a call, with both torch.sort
+                  yardsticks; full-range triples bit-equal at each N;
               (c) phase 9's soak engine rebuilds its map at rebuild_batch
                   32 (32 keyframe clouds of 8192 points, 262 144 in one
                   insert): its K9 calls through the grid kernel, the first
@@ -1688,6 +1684,8 @@ def _fleet_phase(dev, cfg, counts, zero):
     """Phase 10 (d): four sessions on one card through the batched step."""
     import torch
 
+    from torch.utils import _pytree as pytree
+
     from fast_limo_tpu_torch.models import iekf
     from fast_limo_tpu_torch.models import pipeline as pl
     from fast_limo_tpu_torch.models.localizer import Localizer
@@ -1735,10 +1733,12 @@ def _fleet_phase(dev, cfg, counts, zero):
         tick_ms.append(1e3 * (time.perf_counter() - t))
         poses.append((outs.pos, outs.quat))
         if k + 1 == min(IDLE_TICKS):
-            frozen = [t_.clone() for t_ in _leaves(batched.select_session(states, IDLE))]
+            frozen = pytree.tree_map(lambda t: t if t is None else t.clone(),
+                                     batched.select_session(states, IDLE))
         elif k in IDLE_TICKS:
-            now = _leaves(batched.select_session(states, IDLE))
-            if not all(torch.equal(a, b) for a, b in zip(frozen, now)):
+            now = batched.select_session(states, IDLE)
+            if not all(a is b or torch.equal(a, b)   # a None leaf is itself
+                       for a, b in zip(pytree.tree_leaves(frozen), pytree.tree_leaves(now))):
                 _fail(f"fleet: the idle session's state changed on tick {k}")
     c = counts()
     peak = torch.cuda.max_memory_allocated(dev) - base
@@ -1788,14 +1788,6 @@ def _fleet_phase(dev, cfg, counts, zero):
     _launched("fleet", c)
     if _port_syncs(census):
         _fail(f"fleet: the batched step synchronized the host at port lines {_port_syncs(census)}")
-
-
-def _leaves(tree):
-    if tree is None:
-        return []
-    if isinstance(tree, tuple):
-        return [x for t in tree for x in _leaves(t)]
-    return [tree]
 
 
 def _entry_phase(dev, counts, zero):
@@ -2270,8 +2262,6 @@ def _shard_phase(dev, cfg, seq, loc, counts, zero, report, rows_out, soak_graph)
 # (the port's plain versions there: 0.00849 m, max |dpos| 1.4e-4 m)
 JAX_WIDE_ATE = 0.00848
 WIDE_PROFILED = 4   # scans of (a) under torch.profiler, after the warm-up
-# the sizes at which both K9 routes are timed, both forms, to place the switch
-K9_CROSSOVER_N = (1024, 4096, 10000, 16384, 24576, 32768, 65536, 98304, 1 << 17)
 K9_WIDE_INPUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                               "k9_wide.npz")   # phase 12's captured sorts, for k9_phases.py
 
@@ -2293,52 +2283,20 @@ def _k9_seeded(torch, dev, form, N, seed):
     return [torch.tensor(x, device=dev) for x in (k1, k2, ar)]
 
 
-def _k9_crossover(torch, dev, sort):
-    """Both K9 routes at each of K9_CROSSOVER_N, both forms: device ms of
-    one call (torch.profiler, the median of three sessions of 5 calls), each
-    held bit-equal to the plain version → ({(N, form): (cluster ms, grid
-    ms)}, the largest N at which the cluster kernel wins in both forms, or
-    0)."""
-    table, upto = {}, 0
-    for N in K9_CROSSOVER_N:
-        for form in ("voxel", "insert"):
-            ops = _k9_seeded(torch, dev, form, N, N)
-            want = sort.sort3_plain(*ops)
-            ms = []
-            for grid, prefix in ((False, "fl_sort3_kernel"), (True, "fl_sort3_grid")):
-                got = sort._launch(*ops, grid=grid)
-                if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                    _fail(f"K9 crossover: the {prefix} route at N = {N} ({form}) differs from "
-                          f"the plain version")
-                runs = [_device_ms(lambda: sort._launch(*ops, grid=grid), prefix)
-                        for _ in range(3)]
-                runs = [x for x in runs if x is not None]
-                ms.append(float(np.median(runs)) if runs else None)
-            table[N, form] = tuple(ms)
-        if all(None not in table[N, f] and table[N, f][0] < table[N, f][1]
-               for f in ("voxel", "insert")):
-            upto = N
-    return table, upto
-
-
 def _k9_row(torch, report, name, k1, k2, v, launches, form):
     """A K9 row of the wide phase: all three outputs bit-equal to the plain
-    version, one CUDA kernel a call (the grid kernel above the switch, the
-    cluster kernel at or below it), with both one-call yardsticks: torch.sort
-    of the int32 key with its indices, and of the int64 key (k1 << 30) | k2;
-    the form's own is the row's library call."""
+    version, one CUDA kernel a call (``fl_sort3_grid_kernel``), with both
+    one-call yardsticks: torch.sort of the int32 key with its indices, and
+    of the int64 key (k1 << 30) | k2; the form's own is the row's library
+    call."""
     from fast_limo_tpu_torch.ops import sort
 
     N = int(k1.shape[0])
-    grid = N > sort.CLUSTER_MAXN
-    g0 = sort.sort3.grid_launches
     a = _once(f"K9 {name}", sort.sort3, lambda: sort.sort3(k1, k2, v))
-    if sort.sort3.grid_launches != g0 + int(grid):
-        _fail(f"K9 {name}: N = {N} did not take the {'grid' if grid else 'cluster'} kernel")
     for i, (g, w) in enumerate(zip(a, sort.sort3_plain(k1, k2, v))):
         if not torch.equal(g, w):
             _fail(f"K9 {name}: output {i} differs from the plain version")
-    prefix = "fl_sort3_grid" if grid else "fl_sort3_kernel"
+    prefix = "fl_sort3_grid"
     n_cuda, n_mine = (_cuda_launches(torch, lambda: sort.sort3(k1, k2, v), p, tries=3, reps=5)
                       for p in ("fl_sort3", prefix))
     if n_cuda != 1 or n_mine != 1:
@@ -2350,8 +2308,8 @@ def _k9_row(torch, report, name, k1, k2, v, launches, form):
     oms, odms = _time_ms(calls[other]), _device_ms(calls[other])
     report(name, 0.0, lambda: sort.sort3(k1, k2, v), lambda: sort.sort3_plain(k1, k2, v),
            24 * N, 0, calls[form],
-           f"(N={N}, {form} form, {'grid' if grid else 'cluster'} kernel, 1 CUDA kernel a "
-           f"call; the {other} form's one call {oms:.4f} ms (device {_fmt(odms)}))",
+           f"(N={N}, {form} form, 1 CUDA kernel a call; the {other} form's one call "
+           f"{oms:.4f} ms (device {_fmt(odms)}))",
            launches=launches, kernel="sort3", prefix=prefix)
 
 
@@ -2447,9 +2405,8 @@ def _wide_phase(dev, counts, zero, report, soak_slam):
           f"{len(census)} synchronizing calls {json.dumps(sites)}", flush=True)
     if not (ate < 0.15 and ate <= 1.25 * JAX_WIDE_ATE):
         _fail(f"wide: ATE {ate:.4f} m, not < 0.15 m and <= 1.25 x {JAX_WIDE_ATE} m")
-    if c["sort3"] != 2 * seq.n_scans or c["sort3_grid"] != c["sort3"]:
-        _fail(f"wide: K9 launched {c['sort3']} times ({c['sort3_grid']} through the grid "
-              f"kernel) in {seq.n_scans} scans, not twice a scan, every one on the grid")
+    if c["sort3"] != 2 * seq.n_scans:
+        _fail(f"wide: K9 launched {c['sort3']} times in {seq.n_scans} scans, not twice a scan")
     _launched("wide", c)
     if _port_syncs(census):
         _fail(f"wide: the scan step synchronized the host at port lines {_port_syncs(census)}")
@@ -2459,19 +2416,16 @@ def _wide_phase(dev, counts, zero, report, soak_slam):
     sorts = cap.get("sorts", [])
     if len(sorts) != 2 or any(int(x[0].shape[0]) != cfg.tpu.max_points_per_scan for x in sorts):
         _fail(f"wide: captured K9 calls at N = {[int(x[0].shape[0]) for x in sorts]}")
-    n_grid = c["sort3_grid"]
-    _k9_row(torch, report, "sort3 (grid, voxel)", *sorts[0], n_grid, "voxel")
-    _k9_row(torch, report, "sort3 (grid, insert)", *sorts[1], n_grid, "insert")
-    # the switch's two sides in both forms, then the grid route above 2^17
-    switch = sort.CLUSTER_MAXN
-    sizes = [(N, form) for N in (switch, switch + 1) for form in ("insert", "voxel") if N >= 1]
-    sizes += [(N, "insert") for N in ((1 << 17) + 1, 1 << 20, 1 << 22) if N != switch + 1]
+    _k9_row(torch, report, "sort3 (grid, voxel)", *sorts[0], c["sort3"], "voxel")
+    _k9_row(torch, report, "sort3 (grid, insert)", *sorts[1], c["sort3"], "insert")
+    # two tiles in both forms, then sizes past 2^17
+    sizes = [(4096, form) for form in ("insert", "voxel")]
+    sizes += [(N, "insert") for N in ((1 << 17) + 1, 1 << 20, 1 << 22)]
     rng = np.random.default_rng(12)
     for N, form in sizes:
         ops = _k9_seeded(torch, dev, form, N, 12 + N)
-        route = "grid" if N > switch else "cluster"
         tag = "" if form == "insert" else "voxel, "
-        _k9_row(torch, report, f"sort3 ({route}, {tag}N={N})", *ops, 0, form)
+        _k9_row(torch, report, f"sort3 (grid, {tag}N={N})", *ops, 0, form)
         full = [torch.tensor(rng.integers(-2 ** 31, 2 ** 31, N).astype(np.int32), device=dev)
                 for _ in range(3)]
         for i, (a, b) in enumerate(zip(sort.sort3(*full), sort.sort3_plain(*full))):
@@ -2479,18 +2433,8 @@ def _wide_phase(dev, counts, zero, report, soak_slam):
                 _fail(f"K9 at N = {N}, full-range triples: output {i} differs from the plain")
     torch.cuda.synchronize()
     print(f"[smoke] wide: (b) K9 bit-equal to its plain version at N = "
-          f"{sorted({N for N, _ in sizes})} and 2^18 (the captured sorts), the switch "
-          f"(CLUSTER_MAXN = {switch}) on both sides in both forms, full-range triples too",
-          flush=True)
-    table, upto = _k9_crossover(torch, dev, sort)
-    print("[smoke] wide: (b) K9 crossover, device ms a call (torch.profiler, median of 3 "
-          "sessions of 5 calls), cluster / grid kernel:", flush=True)
-    for N in K9_CROSSOVER_N:
-        cells = " | ".join(f"{form} {_fmt(table[N, form][0])} / {_fmt(table[N, form][1])}"
-                           for form in ("voxel", "insert"))
-        print(f"[smoke] wide: (b)   N = {N:6d}: {cells}", flush=True)
-    print(f"[smoke] wide: (b) the largest N at which the cluster kernel wins both forms: "
-          f"{upto} (0: none); the switch CLUSTER_MAXN = {switch}", flush=True)
+          f"{sorted({N for N, _ in sizes})} and 2^18 (the captured sorts), full-range "
+          f"triples too", flush=True)
 
     # (c) a map rebuild of 32 keyframe clouds in one insert on phase 9's
     # soak, then 24 more scans of the soak on the rebuilt map
@@ -2522,10 +2466,10 @@ def _wide_phase(dev, counts, zero, report, soak_slam):
     print(f"[smoke] wide: (c) map rebuild of {len(slam.keyframes)} keyframes at rebuild_batch "
           f"{lc.rebuild_batch}: {n_ins} inserts of {width} points in {wall:.1f} ms | K9 sizes "
           f"{[int(x[0].shape[0]) for x in rebuilt]} | launches {json.dumps(c)}", flush=True)
-    if width != 262144 or c["sort3"] != n_ins or c["sort3_grid"] != n_ins or \
+    if width != 262144 or c["sort3"] != n_ins or \
             any(int(x[0].shape[0]) != width for x in rebuilt):
-        _fail(f"wide: the rebuild's K9 calls were not {n_ins} grid sorts of 262 144")
-    _k9_row(torch, report, "sort3 (grid, rebuild)", *rebuilt[0], c["sort3_grid"], "insert")
+        _fail(f"wide: the rebuild's K9 calls were not {n_ins} sorts of 262 144")
+    _k9_row(torch, report, "sort3 (grid, rebuild)", *rebuilt[0], c["sort3"], "insert")
     os.makedirs(os.path.dirname(K9_WIDE_INPUTS), exist_ok=True)
     np.savez(K9_WIDE_INPUTS, **{name: torch.stack(ops).cpu().numpy() for name, ops in
                                 (("voxel", sorts[0]), ("insert", sorts[1]),
@@ -2589,14 +2533,14 @@ def _compare(args, smi) -> None:
     for ev in _events(stamps, scans):
         _feed(loc, ev, stamps, acc, gyro, scans)
     torch.cuda.synchronize()
-    k9 = (sort.sort3.launches, getattr(sort.sort3, "grid_launches", 0))
+    k9 = sort.sort3.launches
     traj = loc.trajectory
     pos = np.array([t["pos"] for t in traj])
     quat = np.array([t["quat"] for t in traj])
     n_iters = np.array([t["n_iters"] for t in traj])
     fallbacks = int(iekf.counters.loop_fallbacks)
     print(f"[compare] replay: {len(traj)} scans | loop fallbacks {fallbacks} | K9 launches "
-          f"{k9[0]} ({k9[1]} through a grid kernel) | n_iters {n_iters.tolist()}", flush=True)
+          f"{k9} | n_iters {n_iters.tolist()}", flush=True)
 
     m, vox = loc.state.map, cfg.map_voxel_size
     _, q = _map_queries(torch, m, dev)
@@ -2711,9 +2655,8 @@ def main() -> None:
               f"({sorted(f.__qualname__ for f in registered)}) are not the smoke's kernel "
               f"wrappers ({sorted(wrappers)})")
 
-    def counts():   # K9's grid route and K2's window resolves beside their totals
+    def counts():   # K2's window resolves beside its total
         return {**{k: w[0].launches for k, w in wrappers.items()},
-                "sort3_grid": sort.sort3.grid_launches,
                 "knn_rows_window": knn_rows.topk_from_table.window_launches}
 
     def zero():
@@ -2865,13 +2808,9 @@ def main() -> None:
     if main_counts["fit_planes_select"] != evals * args.scans or main_counts["fit_planes"]:
         _fail(f"K3 launched {main_counts['fit_planes_select']} + {main_counts['fit_planes']} "
               f"times in {args.scans} scans, not once an evaluation ({evals} a scan)")
-    # K9 twice a scan, each sort on the route its width takes at the switch
-    n_grid = args.scans * sum(n > sort.CLUSTER_MAXN for n in
-                              (cfg.tpu.max_points_per_scan, cfg.tpu.max_insert_points))
-    if main_counts["sort3"] != 2 * args.scans or main_counts["sort3_grid"] != n_grid:
-        _fail(f"K9 launched {main_counts['sort3']} times in {args.scans} scans "
-              f"({main_counts['sort3_grid']} through the grid kernel), not twice a scan "
-              f"with {n_grid} through the grid kernel (CLUSTER_MAXN = {sort.CLUSTER_MAXN})")
+    # K9 twice a scan
+    if main_counts["sort3"] != 2 * args.scans:
+        _fail(f"K9 launched {main_counts['sort3']} times in {args.scans} scans, not twice a scan")
     # K2: one window resolve a scan, one select launch an evaluation
     n_window = main_counts["knn_rows_window"]
     n_select = main_counts["knn_rows"] - n_window

@@ -50,8 +50,7 @@ _SIGNATURES = {
     "fl_update_loop_scratch": [_I],
     "fl_update_loop": [_P, _I, _P, _P, _F, _F, _F, _I, _I, _F, _F, _F, _F, _I, _F,
                        _I, _I, _P, _P, _P, _P, _P],
-    "fl_sort3": [_P] * 3 + [_I] + [_P] * 7 + [_I, _P],
-    "fl_sort3_grid_blocks": [],
+    "fl_sort3": [_P] * 3 + [_I] + [_P] * 8,
     "fl_sort3_grid_table": [_I],
 }
 

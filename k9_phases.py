@@ -124,15 +124,13 @@ def _worker(tree: str, rows_path: str) -> None:
         arrays = [f[f"row{i}"] for i in range(len(names))]
     for name, form, ops in zip(names, forms, arrays):
         k1, k2, v = (torch.tensor(x, device=dev) for x in ops)
-        g0 = sort.sort3.grid_launches
         got = sort.sort3(k1, k2, v)
-        grid = sort.sort3.grid_launches > g0
         equal = all(torch.equal(a, b) for a, b in zip(got, sort.sort3_plain(k1, k2, v)))
         lib = _library_calls(torch, k1, k2, form)
         call = lambda: sort.sort3(k1, k2, v)   # noqa: E731
         print(json.dumps({
             "tree": os.path.abspath(tree), "row": str(name), "N": int(k1.shape[0]),
-            "grid": bool(grid), "equal": equal,
+            "equal": equal,
             "device_ms": chip_smoke._device_ms(call, "fl_sort3"),
             "wrapper_ms": chip_smoke._time_ms(call), "events_ms": _events_ms(torch, call),
             "torch_sort_device_ms": chip_smoke._device_ms(lib),
@@ -278,7 +276,7 @@ def _variant_library(spec=(), stamps=True):
                            if "ptxas" in x or "bytes" in x), flush=True)
     handle = ctypes.CDLL(lib)
     P, I = ctypes.c_void_p, ctypes.c_int
-    handle.fl_sort3.argtypes = [P] * 3 + [I] + [P] * 7 + [I, P]
+    handle.fl_sort3.argtypes = [P] * 3 + [I] + [P] * 8
     handle.fl_sort3_grid_table.argtypes = [I]
     names = ["fl_sort3", "fl_sort3_grid_blocks", "fl_sort3_grid_table"]
     if stamps:
@@ -290,7 +288,7 @@ def _variant_library(spec=(), stamps=True):
 
 
 def _launcher(torch, lib, tile, ops, dev):
-    """(a call of lib's grid route on ops, its outputs, launched blocks)."""
+    """(a call of lib's sort on ops, its outputs, launched blocks)."""
     G = lib.fl_sort3_grid_blocks()
     if G <= 0:
         raise RuntimeError(f"the grid kernel cannot be resident: error {-G}")
@@ -302,7 +300,7 @@ def _launcher(torch, lib, tile, ops, dev):
     ptr = [ctypes.c_void_p(t.data_ptr()) for t in (k1, k2, v, *res, *buf, table)]
 
     def call():
-        err = lib.fl_sort3(*ptr[:3], N, *ptr[3:], G,
+        err = lib.fl_sort3(*ptr[:3], N, *ptr[3:],
                            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if err:
             raise RuntimeError(f"the grid kernel failed to launch: error {err}")
@@ -420,9 +418,8 @@ def main() -> None:
             sys.exit(1)
         timed.append(lines)
         for x in lines:
-            print(f"[k9] {tree}: {x['row']} {'grid' if x['grid'] else 'cluster'} "
-                  f"device {chip_smoke._fmt(x['device_ms'])}, wrapper {x['wrapper_ms']:.4f} "
-                  f"ms, events over 20 calls {x['events_ms']:.4f} ms | torch.sort device {chip_smoke._fmt(x['torch_sort_device_ms'])} "
+            print(f"[k9] {tree}: {x['row']} device {chip_smoke._fmt(x['device_ms'])}, "
+                  f"wrapper {x['wrapper_ms']:.4f} ms, events over 20 calls {x['events_ms']:.4f} ms | torch.sort device {chip_smoke._fmt(x['torch_sort_device_ms'])} "
                   f"| bit-equal {x['equal']}", flush=True)
         if not all(x["equal"] for x in lines):
             print(f"[k9] FAIL: {tree}'s sort3 differs from its plain version", flush=True)

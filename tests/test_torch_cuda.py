@@ -679,48 +679,24 @@ def _k9_cases(N):
              same, ar)]
 
 
-@pytest.mark.parametrize("N", sorted({1, 127, 4096, 10000, 32768, 65536, 1 << 17,
-                                      (1 << 17) + 1, 1 << 18, 1 << 20, 1 << 22,
-                                      max(sort.CLUSTER_MAXN - 1, 1), sort.CLUSTER_MAXN,
-                                      sort.CLUSTER_MAXN + 1}))
+@pytest.mark.parametrize("N", [1, 127, 2048, 2049, 4095, 4096, 4097, 10000, 32768, 65536,
+                               98304, 1 << 17, (1 << 17) + 1, 1 << 18, 1 << 20, 1 << 22])
 def test_k9_sort3(dev, N):
     """K9 against its plain version, all three outputs bit-equal, with one
-    CUDA kernel a call: the cluster kernel up to the switch
-    (``sort.CLUSTER_MAXN``), the grid kernel above it
-    (``sort3.grid_launches`` counts the route)."""
-    grid = N > sort.CLUSTER_MAXN
+    CUDA kernel a call, ``fl_sort3_grid_kernel``, at every N: one tile and
+    just past it (2048, 2049), two tiles (4096) and its neighbours, and the
+    callers' widths."""
     for name, *ops in _k9_cases(N):
         args = [torch.tensor(a, device=dev) for a in ops]
-        g0 = sort.sort3.grid_launches
         got = _once(sort.sort3, lambda: sort.sort3(*args))
-        assert sort.sort3.grid_launches == g0 + int(grid), name
         for g, w in zip(got, sort.sort3_plain(*args)):
             assert g.shape == (N,) and torch.equal(g, w), name
     assert _cuda_kernels(lambda: sort.sort3(*args), "fl_sort3") == 1
-    assert _cuda_kernels(lambda: sort.sort3(*args), "fl_sort3_grid") == int(grid)
+    assert _cuda_kernels(lambda: sort.sort3(*args), "fl_sort3_grid") == 1
     key, idx = args[0], torch.arange(N, dtype=torch.int32, device=dev)
     got = _once(sort.sort3, lambda: sort.sort_key_val(key, idx))
     want = sort.sort3_plain(key, idx, idx)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[2])
-
-
-@pytest.mark.parametrize("N", [1, 127, 2048, 2049, 10000, 32768, 65536, 98304, 1 << 17])
-def test_k9_both_routes_at_the_crossover_sizes(dev, N):
-    """Each route named explicitly (the crossover measurement's calls) at
-    sizes both take: bit-equal to the plain version, one CUDA kernel a
-    call, the grid route counted in ``sort3.grid_launches``."""
-    for name, *ops in _k9_cases(N):
-        args = [torch.tensor(a, device=dev) for a in ops]
-        want = sort.sort3_plain(*args)
-        for grid in (False, True):
-            g0 = sort.sort3.grid_launches
-            got = _once(sort.sort3, lambda: sort._launch(*args, grid=grid))
-            assert sort.sort3.grid_launches == g0 + int(grid), name
-            for g, w in zip(got, want):
-                assert torch.equal(g, w), (name, grid)
-    for grid, prefix in ((False, "fl_sort3_kernel"), (True, "fl_sort3_grid")):
-        assert _cuda_kernels(lambda: sort._launch(*args, grid=grid), "fl_sort3") == 1
-        assert _cuda_kernels(lambda: sort._launch(*args, grid=grid), prefix) == 1
 
 
 def test_k9_refuses_what_it_does_not_take(dev):
@@ -729,12 +705,9 @@ def test_k9_refuses_what_it_does_not_take(dev):
     for bad in ((a.long(), a, a), (a[::2], a[:4], a[:4]), (a[:0], a[:0], a[:0])):
         with pytest.raises(ValueError):
             sort.sort3(*bad)
-    big = torch.arange(2 * (sort.CLUSTER_MAXN + 1), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):   # the grid route checks its operands alike
+    big = torch.arange(8194, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):   # past one tile alike
         sort.sort3(big[::2], big[1::2], big[::2])
-    over = torch.arange(sort.CLUSTER_CAP + 1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="at most"):   # past the cluster's reach
-        sort._launch(over, over, over, grid=False)
 
 
 def test_split_transfer_matches_synchronous_copies(dev, scan):

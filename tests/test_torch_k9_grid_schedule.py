@@ -1,5 +1,5 @@
-"""K9's grid kernel (csrc/sort3.cu, ``fl_sort3_grid_kernel``: the sorts
-above the cluster/grid switch) on the CPU.
+"""K9's kernel (csrc/sort3.cu, ``fl_sort3_grid_kernel``: every sort on the
+card, from 1 element up) on the CPU.
 
 A NumPy emulation of the kernel's schedule — min(G, tiles) blocks, block b
 taking tiles b, b + G, ... of THREADS × ITEMS elements; one read of the
@@ -259,6 +259,20 @@ def test_grid_schedule_equals_the_plain_sort(N, G):
     # the skip rule's reach: no pass, one pass, the callers' forms, all twelve
     assert passes["all equal"] == 0 and passes["k1's top digit"] == 1
     assert passes["voxel sort (key, arange, arange)"] == 4 and passes["full range"] == 12
+
+
+@pytest.mark.parametrize("N, G", [(N, G) for N in (1, 127, 2048, 2049, 4096) for G in (GRID, 1)])
+def test_grid_schedule_at_small_n(N, G):
+    """Below and around one tile (2048) the kernel takes the sorts alone:
+    one block, or two, sorts the whole input bit-equal to the plain sort,
+    and the skip rule takes no pass that can move nothing (at N = 1 none)."""
+    for name, k1, k2, v, want in _cases(N):
+        *got, passes = grid_sort3(k1, k2, v, G)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        assert passes <= (4 if name.startswith("voxel") else 12), name
+        assert N > 1 or passes == 0, name
+        assert name != "all equal" or passes == 0
 
 
 def test_grid_schedule_equals_lax_sort():

@@ -7,8 +7,8 @@ element.  The kernel itself (``csrc/sort3.cu``) runs only on the card
 (tests/test_torch_cuda.py); here the CPU wrappers must not count launches,
 the two callers' orders must be those of the stable int64 packed-key sort
 they replaced, no sort width may be refused when the step or the SLAM
-engine is built for the card, and the plain version must hold above the
-cluster kernel's 2^17 too (the grid kernel's route on the card)."""
+engine is built for the card, and the plain version must hold at 2^18 + 3
+too (just past a 128-beam scan's width)."""
 
 import jax
 import jax.numpy as jnp
@@ -176,19 +176,16 @@ def test_the_kernel_refuses_no_element_and_a_strided_operand(monkeypatch):
     empty = torch.zeros(0, dtype=torch.int32).as_subclass(_OnCard)
     with pytest.raises(ValueError, match="1 to 2147483647 elements, got 0"):
         sort._launch(empty, empty, empty)
-    a = torch.arange(2 * (sort.CLUSTER_MAXN + 1), dtype=torch.int32).as_subclass(_OnCard)
+    a = torch.arange(8194, dtype=torch.int32).as_subclass(_OnCard)
     with pytest.raises(ValueError, match="contiguous"):
         sort._launch(a[::2], a[1::2], a[::2])
     with pytest.raises(ValueError, match="int32"):
         sort._launch(a.long(), a, a)
-    # the switch is the largest N measured at which the cluster kernel wins
-    # both forms on an H100 (PERF §6): 4096, a single point; the grid kernel
-    # wins both forms at 1024 (one tile) and from 10 000 up
-    assert sort.MAXN == 2 ** 31 - 1 and sort.CLUSTER_MAXN == 4096
+    assert sort.MAXN == 2 ** 31 - 1
 
 
 def test_plain_matches_lax_sort_above_the_cluster():
-    """At N = 2^18 + 3 (the grid kernel's route on the card) the plain
+    """At N = 2^18 + 3 (past a 128-beam scan's width) the plain
     version equals ``lax.sort`` over all three operands, for full-range
     keys with INT32_MIN / INT32_MAX, heavy ties and a repeated v, and the
     JAX callers' sorts on their forms."""

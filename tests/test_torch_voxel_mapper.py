@@ -69,10 +69,13 @@ def _assert_maps_equal(tm, jm):
     assert int(tm.num_points) == int(jm.num_points)
 
 
-def test_insert_sequence_bit_equal(rng):
+@pytest.mark.parametrize("bucket", [2, 6])
+def test_insert_sequence_bit_equal(rng, bucket):
     """Three inserts from the same (empty) state: new voxels, re-visited
-    voxels, full buckets and crowded groups all land identically."""
-    tm, jm = _map_pair(cap=1024, bucket=2)
+    voxels, full buckets and crowded groups all land identically.  Bucket 6
+    (``map_points_per_voxel`` of the benchmark's configurations) also takes
+    runs longer than the bucket onto partly filled ones."""
+    tm, jm = _map_pair(cap=1024, bucket=bucket)
     for i in range(3):
         pts = _cloud(rng, 1500, center=(0.8 * i, 0.3 * i, 0.0))
         valid = rng.random(len(pts)) < 0.95
